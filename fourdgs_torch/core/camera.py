@@ -1,0 +1,89 @@
+"""Camera producing view/projection matrices (port of fourdgs/core/camera.py).
+
+Conventions are the reference's (GLM, right-handed, OpenGL clip z in
+[-1, 1]); matrices are row-major math matrices: `M[i, j]` is row i, column j
+and points transform as `M @ v`. Everything is float32 on the camera's
+device, in the reference's order of operations.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+                           min=eps)
+
+
+def look_at(eye: torch.Tensor, center: torch.Tensor,
+            up: torch.Tensor) -> torch.Tensor:
+    """Right-handed lookAt, identical to glm::lookAt."""
+    f = _normalize(center - eye)
+    s = _normalize(torch.linalg.cross(f, up))
+    u = torch.linalg.cross(s, f)
+    rot = torch.stack([s, u, -f])                     # rows
+    view = torch.eye(4, dtype=eye.dtype, device=eye.device)
+    view[:3, :3] = rot
+    view[:3, 3] = -rot @ eye
+    return view
+
+
+def perspective(fov_y_rad: torch.Tensor, aspect: torch.Tensor,
+                near: torch.Tensor, far: torch.Tensor) -> torch.Tensor:
+    """Right-handed perspective with z in [-1, 1], identical to
+    glm::perspective."""
+    t = torch.tan(fov_y_rad * 0.5)
+    p = torch.zeros((4, 4), dtype=t.dtype, device=t.device)
+    p[0, 0] = 1.0 / (aspect * t)
+    p[1, 1] = 1.0 / t
+    p[2, 2] = -(far + near) / (far - near)
+    p[2, 3] = -(2.0 * far * near) / (far - near)
+    p[3, 2] = -1.0
+    return p
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    """Immutable camera: 0-d/(3,) float32 tensors on one device, plus the
+    image size in pixels."""
+
+    position: torch.Tensor      # (3,)
+    orientation: torch.Tensor   # (3,) viewing direction (not necessarily unit)
+    up: torch.Tensor            # (3,)
+    fov_deg: torch.Tensor       # () vertical field of view, degrees
+    near: torch.Tensor          # ()
+    far: torch.Tensor           # ()
+    width: int = 800
+    height: int = 800
+
+    @staticmethod
+    def create(position=(0.0, 0.0, 0.0), orientation=(0.0, 0.0, -1.0),
+               up=(0.0, 1.0, 0.0), fov_deg=60.0, near=0.1, far=5000.0,
+               width=800, height=800, device="cpu") -> "Camera":
+        """Reference defaults (fov 60 deg, near 0.1, far 5000)."""
+        def f32(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=device)
+        return Camera(position=f32(position), orientation=f32(orientation),
+                      up=f32(up), fov_deg=f32(fov_deg), near=f32(near),
+                      far=f32(far), width=int(width), height=int(height))
+
+    @property
+    def device(self) -> torch.device:
+        return self.position.device
+
+    @property
+    def aspect(self) -> float:
+        return float(self.width) / float(self.height)
+
+    def view_matrix(self) -> torch.Tensor:
+        return look_at(self.position, self.position + self.orientation,
+                       self.up)
+
+    def proj_matrix(self) -> torch.Tensor:
+        fov = torch.deg2rad(self.fov_deg)
+        aspect = torch.tensor(self.aspect, dtype=torch.float32,
+                              device=self.device)
+        return perspective(fov, aspect, self.near, self.far)

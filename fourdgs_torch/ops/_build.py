@@ -1,0 +1,106 @@
+"""Build, load and launch the hand-written CUDA kernels of `ops/csrc/`.
+
+Each `.cu` file exposes plain C entry points (no PyTorch headers), so one
+`nvcc` call builds it in seconds:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
+
+The library is built at first use into `ops/_build/` (listed in
+`.gitignore`), named by a hash of its source and flags so an edited source is
+never served a stale library, and loaded with `ctypes`. Pointers and the
+stream travel as `c_void_p`; every entry returns `cudaGetLastError()` after
+its launch and the launcher raises when it is not 0.
+
+Nothing here runs at import: a module holding a `CudaKernel` imports on a
+machine without `nvcc` or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").is_file():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, "
+                           "PATH): the CUDA kernels cannot be built")
+    return found
+
+
+def load_library(source: str, extra_flags=()) -> ctypes.CDLL:
+    """Build `csrc/<source>` (once per process and per source hash) and
+    return the loaded library."""
+    key = (source, tuple(extra_flags))
+    if key in _LIBS:
+        return _LIBS[key]
+    src = CSRC / source
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+                            ).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD_DIR / f"{src.stem}-{digest}.so"
+    if not lib_path.exists():
+        # Build to a private name, then rename: concurrent processes (test
+        # workers) never load a half-written library.
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *flags, "-o", tmp, str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    _LIBS[key] = lib
+    return lib
+
+
+class CudaKernel:
+    """One C entry point of a `csrc/` source, with its launch count.
+
+    `argtypes` are ctypes types for the entry's arguments except the
+    trailing stream, which the launcher appends. `launches` counts the
+    successful launches (a plain int; tests and chip_smoke.py reset it)."""
+
+    def __init__(self, source: str, symbol: str, argtypes, extra_flags=()):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [ctypes.c_void_p]
+        self.extra_flags = tuple(extra_flags)
+        self.launches = 0
+        self._fn = None
+
+    def build(self):
+        if self._fn is None:
+            fn = getattr(load_library(self.source, self.extra_flags),
+                         self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, *args, stream: int):
+        err = self.build()(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
+                               f"{err}")
+        self.launches += 1

@@ -1,0 +1,227 @@
+"""The tiled render pipeline: project -> bin -> sort -> composite (port of
+fourdgs/render/pipeline.py, quantized-depth branch with the hand-written
+composite kernel and progressive deepening).
+
+`RenderConfig` keeps every field name and default of the reference, so a
+reference config converts with `RenderConfig(**dataclasses.asdict(cfg))`.
+`backend="pallas"` names the hand-written kernels (here CUDA). What is not
+ported yet raises NotImplementedError: the XLA-backend composite, the exact
+sort, tile-row banding and the banded tail (`tail_mode="banded"`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from fourdgs_torch.core.camera import Camera
+from fourdgs_torch.ops.composite_cuda import (composite_records,
+                                              composite_records_at,
+                                              identity_carry, pack_records,
+                                              record_fields)
+from fourdgs_torch.render.project import Projected, project_components
+from fourdgs_torch.render.tiles import (assemble_image, bin_splats,
+                                        tile_pixel_ndc)
+from fourdgs_torch.splats import packed as PK
+
+TILE_H = 32
+TILE_W = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static pipeline configuration; field names and defaults are the
+    reference's (fourdgs/render/pipeline.py documents each knob)."""
+    tile_h: int = TILE_H
+    tile_w: int = TILE_W
+    max_tiles_per_splat: int = 16
+    max_splats_per_tile: int = 1024
+    splat_chunk: int = 64
+    backend: str = "xla"
+    background: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 1.0)
+    quantized_depth_sort: bool = False
+    sort_compact_keep_cols: int = 0
+    big_splat_budget: int = 0
+    big_splat_keep_cols: int = 128
+    deepening_passes: int = 1
+    deepening_fraction: float = 0.25
+    deepening_schedule: Tuple[int, ...] = ()
+    sort_backend: str = "xla"
+    compact_backend: str = "xla"
+    compact_row_len: int = 8192
+    depth_prune_cap: int = 0
+    depth_prune_safety: float = 2.0
+    tail_mode: str = "off"
+    tail_bands: int = 8
+    tail_block: Tuple[int, int] = (8, 8)
+    tail_chunk: int = 2048
+    tail_depth_beta: float = 0.0
+    tail_alpha_power: int = 0
+    tail_exact_clip: bool = False
+
+
+def _pad_pairs(pair_splat: torch.Tensor, m: int) -> torch.Tensor:
+    """Append m dead entries so every window [start, start + m) is in range
+    (tile_start <= P always)."""
+    return torch.cat([pair_splat, pair_splat.new_zeros((m,))])
+
+
+def _gather_pair_rows(pair_padded: torch.Tensor, starts: torch.Tensor,
+                      m: int) -> torch.Tensor:
+    """(T,) starts -> (T, m) contiguous windows of the sorted pair array."""
+    idx = starts.long()[:, None] + torch.arange(m, device=starts.device)
+    return pair_padded[idx]
+
+
+def render_projected(proj: Projected, camera: Camera,
+                     cfg: RenderConfig = RenderConfig(),
+                     return_aux: bool = False):
+    """Tile-binned render of already-projected splats. Returns the (H, W, 4)
+    image, or (image, aux) with return_aux: aux holds the binning health
+    counters (pair-budget overflow, compaction drops, prune under-keep, live
+    pairs, deepest tile) and the truncation residual, as 0-d tensors."""
+    if cfg.backend != "pallas" or not cfg.quantized_depth_sort:
+        raise NotImplementedError(
+            "only backend='pallas' with quantized_depth_sort is ported yet "
+            "(ROADMAP.md Queue A, item 9)")
+    if cfg.tail_mode != "off":
+        raise NotImplementedError("the banded tail is not ported yet "
+                                  "(ROADMAP.md, converged slice)")
+    pmat = camera.proj_matrix()
+    p00, p11 = pmat[0, 0], pmat[1, 1]
+    w, h = camera.width, camera.height
+    px, py, _ = tile_pixel_ndc(w, h, cfg.tile_h, cfg.tile_w,
+                               device=proj.mx.device)
+    # record_function ranges segment torch.profiler traces by stage.
+    with record_function("fourdgs::bin_sort"):
+        binning = bin_splats(
+            proj, p00, p11, w, h, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+            max_tiles_per_splat=cfg.max_tiles_per_splat,
+            quantized_depth=True,
+            compact_keep_cols=cfg.sort_compact_keep_cols,
+            big_splat_budget=cfg.big_splat_budget,
+            big_splat_keep_cols=cfg.big_splat_keep_cols,
+            pallas_sort=(cfg.sort_backend == "pallas"),
+            pallas_compact=(cfg.compact_backend == "pallas"),
+            compact_row_len=cfg.compact_row_len,
+            depth_prune_cap=cfg.depth_prune_cap,
+            depth_prune_safety=cfg.depth_prune_safety)
+    bg = torch.tensor(cfg.background, dtype=proj.mx.dtype,
+                      device=proj.mx.device)
+    with record_function("fourdgs::composite"):
+        tiles, resid = _composite_pallas_progressive(proj, binning, px, py,
+                                                     p00, p11, bg, cfg)
+    img = assemble_image(tiles, w, h, cfg.tile_h, cfg.tile_w)
+    if not return_aux:
+        return img
+    counts = binning.tile_start[1:] - binning.tile_start[:-1]
+    aux: Dict[str, torch.Tensor] = {
+        "overflowed": binning.overflowed,
+        "live_pairs": binning.tile_start[-1],
+        "max_tile_pairs": counts.max(),
+        # Per-pixel bound on truncation error: the remaining transmittance
+        # of any tile whose pair list was truncated (0 == exact w.r.t. the
+        # per-tile capacity).
+        "resid_transmittance": resid.max(),
+    }
+    if binning.compact_dropped is not None:
+        aux["compact_dropped"] = binning.compact_dropped
+    if binning.prune_underkeep is not None:
+        aux["prune_underkeep"] = binning.prune_underkeep
+    return img, aux
+
+
+def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
+                                  background, cfg: RenderConfig):
+    """Progressive-deepening composite.
+
+    Pass 1 composites every tile's nearest `max_splats_per_tile` pairs. Each
+    further pass selects up to round(deepening_fraction * T) (at least 128)
+    tiles that are still unsaturated (max transmittance above 1e-6) and
+    have pairs left, gathers their next depth slab and composites it into
+    their carry in place. Returns (tiles (T, P, 4), resid (T, P))."""
+    m = cfg.max_splats_per_tile
+    t_tiles, p = px.shape
+    dev = px.device
+    starts = binning.tile_start[:-1]
+    counts_full = binning.tile_start[1:] - starts
+    pair_pad = _pad_pairs(binning.pair_splat, m)
+    kx = (px / p00).reshape(t_tiles, 1, p)
+    ky = (py / p11).reshape(t_tiles, 1, p)
+    rec_all = record_fields(proj, p00, p11)
+
+    with record_function("fourdgs::pass1_pack"):
+        rows0 = _gather_pair_rows(pair_pad, starts, m)
+        live0 = torch.arange(m, device=dev)[None, :] < counts_full[:, None]
+        rec0 = pack_records(proj, rows0, live0, p00, p11, rec=rec_all)
+        pairs_done = torch.clamp(counts_full, max=m)
+    with record_function("fourdgs::pass1_kernel"):
+        out = composite_records(rec0, pairs_done.to(torch.int32), kx, ky,
+                                identity_carry(t_tiles, p, device=dev))
+
+    t_cap = min(t_tiles, max(128, int(round(t_tiles * cfg.deepening_fraction))))
+    schedule = cfg.deepening_schedule or (m,) * (cfg.deepening_passes - 1)
+    if len(schedule) != cfg.deepening_passes - 1 or any(
+            mi % 128 for mi in schedule):
+        raise ValueError(f"bad deepening schedule {schedule} for "
+                         f"{cfg.deepening_passes} passes")
+    if schedule and max(schedule) > m:
+        pair_pad = _pad_pairs(binning.pair_splat, max(schedule))
+    for mi in schedule:
+        with record_function("fourdgs::deepen_select_pack"):
+            remaining = counts_full - pairs_done
+            unsat = out[:, 4, :].amax(dim=1) > 1e-6
+            active = unsat & (remaining > 0)
+            # Deterministic top-t_cap active tiles (inactive fillers are
+            # no-ops: their live mask is empty and their counter does not
+            # advance).
+            order = torch.argsort(-active.to(torch.int32), stable=True)
+            sel = order[:t_cap]
+            act = active[sel]
+            done_sel = pairs_done[sel]
+            rows = _gather_pair_rows(pair_pad, starts[sel] + done_sel, mi)
+            off = done_sel[:, None] + torch.arange(mi, device=dev)[None, :]
+            live = act[:, None] & (off < counts_full[sel][:, None])
+            rec = pack_records(proj, rows, live, p00, p11, rec=rec_all)
+            cnt = torch.where(act,
+                              torch.clamp(counts_full[sel] - done_sel, 0, mi),
+                              0).to(torch.int32)
+        with record_function("fourdgs::deepen_kernel"):
+            out = composite_records_at(rec, cnt, sel, kx, ky, out)
+        pairs_done = pairs_done.index_add(0, sel, cnt.to(pairs_done.dtype))
+
+    rgb = out[:, 0:3, :] + out[:, 4:5, :] * background[:3, None]
+    a = out[:, 3, :] + out[:, 4, :] * background[3]
+    tiles = torch.cat([rgb, a[:, None, :]], dim=1).permute(0, 2, 1)
+    truncated = (counts_full - pairs_done) > 0
+    if binning.tile_pruned is not None:
+        # Pairs dropped by the depth prune are truncation error too.
+        truncated = truncated | binning.tile_pruned
+    return tiles, out[:, 4, :] * truncated[:, None]
+
+
+def project_params4d(params: Dict[str, torch.Tensor], camera: Camera,
+                     t: float, min_opacity: float = 0.0) -> Projected:
+    """Covariance construction, temporal slice and EWA projection of the
+    packed parameter dict."""
+    cov4 = PK.cov4_motion(params)
+    mx, my, mz, cov3, opacity, sort_mean = PK.slice4d(params, cov4, t,
+                                                      min_opacity)
+    colors = (params["cr"], params["cg"], params["cb"], params["ca"])
+    return project_components(mx, my, mz, cov3, colors, opacity, camera,
+                              sort_mean=sort_mean)
+
+
+def render_params4d_packed(params: Dict[str, torch.Tensor], camera: Camera,
+                           t: float, min_opacity: float = 0.0,
+                           cfg: RenderConfig = RenderConfig(),
+                           return_aux: bool = False):
+    """The flagship path on the packed scalar-SoA parameterization: `params`
+    is a dict of (N,) float32 tensors (PARAM4D_FIELDS) on the camera's
+    device."""
+    with record_function("fourdgs::project"):
+        proj = project_params4d(params, camera, t, min_opacity)
+    return render_projected(proj, camera, cfg, return_aux=return_aux)

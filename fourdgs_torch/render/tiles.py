@@ -1,0 +1,400 @@
+"""Tile binning, quantized-depth branch (port of fourdgs/render/tiles.py).
+
+Each projected splat's footprint selects a rectangle of image tiles; every
+splat emits a fixed budget of (tile, splat) pair slots. A pair's sort key
+packs (tile_id << 20) | top-20-bits-of-float(distance), so one sort of the
+keys yields tile-major, front-to-back order, and the per-tile ranges (CSR
+offsets) come from a left bisect of the sorted keys.
+
+The exact (non-quantized) branch, tile-row banding (images of 2047 tiles or
+more), the merge-tree sort and the sharded tile window wait; see ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch.profiler import record_function
+
+from fourdgs_torch.ops.lookup_cuda import sample_blocks
+from fourdgs_torch.ops.sort_cuda import DEAD, rowsort_compact
+from fourdgs_torch.render.project import Projected
+
+QUANT_DEPTH_BITS = 20
+COMPACT_ROW_LEN = 8192      # row width of the plain compaction sort
+TILE_LIMIT = (1 << 11) - 1  # the key's 11-bit tile-id budget
+
+
+def tile_grid(width: int, height: int, tile_h: int, tile_w: int):
+    """Number of tiles (ny, nx) covering a width x height image."""
+    return (-(-height // tile_h), -(-width // tile_w))
+
+
+@dataclasses.dataclass(frozen=True)
+class TileBinning:
+    """Sorted (tile, splat) pair lists + CSR offsets (the reference's field
+    names; all int32 tensors).
+
+    pair_splat:  (P,) splat index per pair, sorted by (tile, depth)
+    pair_tile:   (P,) tile id per pair (num_tiles for dead slots)
+    tile_start:  (T+1,) CSR offsets into the pair arrays
+    overflowed:  () splats whose bbox exceeded the pair budget
+    compact_dropped: () live pairs lost to the compaction cap (or None)
+    prune_underkeep: () pruned tiles left with fewer pairs than the cap
+    tile_pruned: (T,) bool, tiles whose list the depth prune cut
+    prune_cut:   (T,) per-tile prune cut keys
+    big_ids:     kept big-tier splat ids (DEAD for empty capacity slots)
+    """
+    pair_splat: torch.Tensor
+    pair_tile: torch.Tensor
+    tile_start: torch.Tensor
+    overflowed: torch.Tensor
+    compact_dropped: Optional[torch.Tensor] = None
+    prune_underkeep: Optional[torch.Tensor] = None
+    tile_pruned: Optional[torch.Tensor] = None
+    prune_cut: Optional[torch.Tensor] = None
+    big_ids: Optional[torch.Tensor] = None
+
+
+def _sort_kv(key: torch.Tensor, val: torch.Tensor, dim: int = -1):
+    """Unstable ascending sort of key, carrying val (the reference's
+    `lax.sort((key, val), num_keys=1, is_stable=False)`)."""
+    ks, order = torch.sort(key, dim=dim)
+    return ks, torch.gather(val, dim, order)
+
+
+def compact_pairs(key: torch.Tensor, val: torch.Tensor, dead: int,
+                  keep_cols: int, rows: Optional[int] = None):
+    """Shrink a mostly-dead pair array: sort `rows` strided logical rows
+    (element i of row r is key[i * rows + r]) and keep each row's first
+    keep_cols. Returns flat (key_kept, val_kept, dropped), rows-major;
+    dropped counts live pairs lost to the cap."""
+    s = key.shape[0]
+    if rows is None:
+        rows = -(-s // COMPACT_ROW_LEN)
+    row_len = -(-s // rows)
+    pad = rows * row_len - s
+    if pad:
+        key = torch.cat([key, key.new_full((pad,), dead)])
+        val = torch.cat([val, val.new_zeros((pad,))])
+    ks, vs = _sort_kv(key.reshape(row_len, rows).T,
+                      val.reshape(row_len, rows).T, dim=1)
+    if keep_cols >= row_len:
+        cpad = keep_cols - row_len
+        dropped = torch.zeros((), dtype=torch.int32, device=key.device)
+        ks = torch.cat([ks, ks.new_full((rows, cpad), dead)], dim=1)
+        vs = torch.cat([vs, vs.new_zeros((rows, cpad))], dim=1)
+    else:
+        dropped = (ks[:, keep_cols:] != dead).sum(dtype=torch.int32)
+        ks = ks[:, :keep_cols]
+        vs = vs[:, :keep_cols]
+    return ks.reshape(-1), vs.reshape(-1), dropped
+
+
+def compact_flag_ids(flag: torch.Tensor, blk: int = 1024,
+                     hot_cap: int = 1024, keep: int = 24):
+    """Indices of a SPARSE bool flag by hot-block two-level extraction: find
+    the flagged `blk`-blocks, gather at most hot_cap of them, compact those.
+    Returns (ids, dropped): ids holds (hot_cap * blk // COMPACT_ROW_LEN *
+    keep) int32 slots (DEAD where empty); flagged ids beyond capacity count
+    in `dropped`. Requires flag.shape[0] % blk == 0."""
+    n = flag.shape[0]
+    if n % blk:
+        raise ValueError(f"flag length {n} is not a multiple of {blk}")
+    dev = flag.device
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    fkey = torch.where(flag, iota, DEAD)
+    nb = n // blk
+    hot = flag.reshape(nb, blk).any(dim=1)
+    hot_cap = min(nb, hot_cap)
+    hkey = torch.where(hot, torch.arange(nb, dtype=torch.int32, device=dev),
+                       DEAD)
+    sel = torch.sort(hkey).values[:hot_cap]
+    miss = sel == DEAD
+    starts = torch.clamp(sel, max=nb - 1).long() * blk
+    seg = fkey[starts[:, None] + torch.arange(blk, device=dev)]
+    seg = torch.where(miss[:, None], DEAD, seg).reshape(-1)
+    ids, _, dropped = compact_pairs(seg, seg, DEAD, keep)
+    # Flagged ids in blocks past hot_cap were never gathered: loud.
+    dropped = dropped + (flag.sum(dtype=torch.int32)
+                         - (seg != DEAD).sum(dtype=torch.int32))
+    return ids, dropped
+
+
+def splat_tile_bbox(proj: Projected, p00, p11, width: int, height: int,
+                    tile_h: int, tile_w: int):
+    """Per-splat tile-space bbox + liveness: (alive, tx0, tx1, ty0, ty1)."""
+    ny, nx = tile_grid(width, height, tile_h, tile_w)
+    hx_ndc, hy_ndc = proj.half_extent_ndc(p00, p11)
+    cx = (proj.mx + 1.0) * 0.5 * width       # pixels
+    cy = (1.0 - proj.my) * 0.5 * height      # row 0 = top
+    hx = hx_ndc * 0.5 * width
+    hy = hy_ndc * 0.5 * height
+
+    def tile_of(v, size, hi):
+        return torch.clamp(torch.floor(v / size), 0, hi).to(torch.int32)
+
+    tx0 = tile_of(cx - hx, tile_w, nx - 1)
+    tx1 = tile_of(cx + hx, tile_w, nx - 1)
+    ty0 = tile_of(cy - hy, tile_h, ny - 1)
+    ty1 = tile_of(cy + hy, tile_h, ny - 1)
+    on_screen = ((cx + hx >= 0) & (cx - hx <= width) &
+                 (cy + hy >= 0) & (cy - hy <= height))
+    return proj.valid & on_screen, tx0, tx1, ty0, ty1
+
+
+def _emit_pair_slots(alive, tx0, tx1, ty0, ty1, nx: int, num_tiles: int,
+                     max_tiles_per_splat: int, splat_ids=None):
+    """Fixed-budget (tile, splat) pair emission, slot-major.
+
+    Returns (tids, lives, splat_idx, overflowed): per-slot lists of (N,)
+    tile ids (num_tiles for dead) and live masks, the concatenated (S*N,)
+    splat index array, and the count of splats whose bbox exceeded the
+    budget. `splat_ids` overrides the emitted splat indices."""
+    n = alive.shape[0]
+    nx_span = tx1 - tx0 + 1
+    ny_span = ty1 - ty0 + 1
+    span = nx_span * ny_span
+    overflowed = ((span > max_tiles_per_splat) & alive).sum(
+        dtype=torch.int32)
+    idx1 = (torch.arange(n, dtype=torch.int32, device=alive.device)
+            if splat_ids is None else splat_ids.to(torch.int32))
+    sx = torch.zeros_like(tx0)
+    sy = torch.zeros_like(ty0)
+    tids, lives = [], []
+    for s in range(max_tiles_per_splat):
+        live_s = alive & (s < span) & (sy < ny_span)
+        tid_s = (ty0 + sy) * nx + (tx0 + sx)
+        tids.append(torch.where(live_s, tid_s, num_tiles))
+        lives.append(live_s)
+        if s + 1 < max_tiles_per_splat:
+            sx = sx + 1
+            wrap = sx >= nx_span
+            sx = torch.where(wrap, 0, sx)
+            sy = torch.where(wrap, sy + 1, sy)
+    splat_idx = idx1.repeat(max_tiles_per_splat)
+    return tids, lives, splat_idx, overflowed
+
+
+def quantized_depth_bits(depth: torch.Tensor) -> torch.Tensor:
+    """Top QUANT_DEPTH_BITS of the positive-float distance (= 1/depth key):
+    positive-float bit patterns are integer-monotone."""
+    dist = 1.0 / torch.clamp(depth, min=1e-30)
+    dbits = dist.view(torch.int32) >> (32 - QUANT_DEPTH_BITS)
+    return torch.clamp(dbits, 0, (1 << QUANT_DEPTH_BITS) - 1)
+
+
+def _pair_keys(tids, lives, dbits):
+    return torch.cat([torch.where(live_s, (tid_s << QUANT_DEPTH_BITS) | dbits,
+                                  DEAD)
+                      for tid_s, live_s in zip(tids, lives)])
+
+
+def quantized_pair_keys(proj: Projected, p00, p11, width: int, height: int,
+                        tile_h: int, tile_w: int, max_tiles_per_splat: int,
+                        big_splat_budget: int = 0,
+                        big_splat_keep_cols: int = 128):
+    """Emit the quantized pair-slot keys, before pruning and sorting.
+
+    Returns (key, splat_idx, overflowed, big_ids): (S,) int32 keys (DEAD for
+    empty slots) and splat indices, the pair-budget overflow count, and the
+    kept big-tier ids (None without the two-tier emission). With
+    big_splat_budget, splats whose bbox spans more than max_tiles_per_splat
+    tiles are compacted into a fixed-capacity id list and re-emitted with
+    big_splat_budget slots; spans beyond even that, and big splats past the
+    capacity, count into `overflowed`."""
+    ny, nx = tile_grid(width, height, tile_h, tile_w)
+    num_tiles = ny * nx
+    if num_tiles >= TILE_LIMIT:
+        raise NotImplementedError(
+            f"{num_tiles} tiles: the quantized key holds < {TILE_LIMIT}; "
+            "tile-row banding is not ported yet (ROADMAP.md Queue A, "
+            "item 10)")
+    alive, tx0, tx1, ty0, ty1 = splat_tile_bbox(proj, p00, p11, width,
+                                                height, tile_h, tile_w)
+    two_tier = bool(big_splat_budget)
+    if two_tier:
+        if big_splat_budget <= max_tiles_per_splat:
+            raise ValueError("big_splat_budget must exceed "
+                             "max_tiles_per_splat")
+        span = (tx1 - tx0 + 1) * (ty1 - ty0 + 1)
+        is_big = alive & (span > max_tiles_per_splat)
+        alive1 = alive & ~is_big
+    else:
+        alive1 = alive
+    tids, lives, splat_idx, overflowed = _emit_pair_slots(
+        alive1, tx0, tx1, ty0, ty1, nx, num_tiles, max_tiles_per_splat)
+    dbits = quantized_depth_bits(proj.depth)
+    key = _pair_keys(tids, lives, dbits)
+    if not two_tier:
+        return key, splat_idx, overflowed, None
+
+    n = alive.shape[0]
+    if n % 1024 == 0 and n >= 128 * 1024:
+        ids, big_dropped = compact_flag_ids(is_big)
+    else:
+        bk0 = torch.where(is_big, torch.arange(n, dtype=torch.int32,
+                                               device=alive.device), DEAD)
+        ids, _, big_dropped = compact_pairs(bk0, bk0, DEAD,
+                                            big_splat_keep_cols)
+        ids, _, big_dropped2 = compact_pairs(ids, ids, DEAD,
+                                             4 * big_splat_keep_cols)
+        big_dropped = big_dropped + big_dropped2
+    blive = ids != DEAD
+    safe = torch.clamp(ids, max=n - 1).long()
+    bfields = torch.stack([tx0, tx1, ty0, ty1, dbits, span])[:, safe]
+    btx0, btx1, bty0, bty1, dbits_b, span_b = bfields
+    tidsb, livesb, sidxb, _ = _emit_pair_slots(
+        blive, btx0, btx1, bty0, bty1, nx, num_tiles, big_splat_budget,
+        splat_ids=safe)
+    key = torch.cat([key, _pair_keys(tidsb, livesb, dbits_b)])
+    splat_idx = torch.cat([splat_idx, sidxb])
+    # Span overflow counted only among KEPT big splats: one dropped by the
+    # capacity cap is already in big_dropped.
+    overflowed = ((blive & (span_b > big_splat_budget)).sum(dtype=torch.int32)
+                  + big_dropped)
+    return key, splat_idx, overflowed, ids
+
+
+def bin_splats(proj: Projected, p00, p11, width: int, height: int,
+               tile_h: int, tile_w: int,
+               max_tiles_per_splat: int = 16,
+               quantized_depth: bool = True,
+               compact_keep_cols: int = 0,
+               big_splat_budget: int = 0,
+               big_splat_keep_cols: int = 128,
+               pallas_sort: bool = False,
+               pallas_compact: bool = False,
+               compact_row_len: int = 8192,
+               depth_prune_cap: int = 0,
+               depth_prune_safety: float = 2.0) -> TileBinning:
+    """Build sorted (tile, splat) pairs, quantized-depth branch.
+
+    Pipeline: emit pair keys (quantized_pair_keys); estimate the per-tile
+    depth-prune cut (depth_prune_cutkeys); compact the mostly-dead slot
+    array (the cut fused into the rowsort kernel, with pallas_compact);
+    one unstable global sort; CSR offsets by bisection.
+    Ties within a (tile, 20-bit depth) bucket order arbitrarily, as in the
+    reference.
+    """
+    if not quantized_depth:
+        raise NotImplementedError("the exact-order branch is not ported yet "
+                                  "(ROADMAP.md Queue A, item 9)")
+    if pallas_sort:
+        raise NotImplementedError("the merge-tree pair sort (kernels 8-10) "
+                                  "is not ported yet")
+    ny, nx = tile_grid(width, height, tile_h, tile_w)
+    num_tiles = ny * nx
+    fuse_cut = bool(depth_prune_cap and compact_keep_cols and pallas_compact)
+    if depth_prune_cap and not fuse_cut:
+        raise NotImplementedError(
+            "a depth prune without the fused rowsort needs the standalone "
+            "cut kernel (kernel 7), not ported yet")
+    with record_function("fourdgs::emit"):
+        key, splat_idx, overflowed, big_ids = quantized_pair_keys(
+            proj, p00, p11, width, height, tile_h, tile_w,
+            max_tiles_per_splat, big_splat_budget, big_splat_keep_cols)
+    dev = key.device
+
+    prune_cut = None
+    if depth_prune_cap:
+        with record_function("fourdgs::depth_prune"):
+            prune_cut = depth_prune_cutkeys(key, num_tiles, depth_prune_cap,
+                                            safety=depth_prune_safety)
+    compact_dropped = None
+    if compact_keep_cols and pallas_compact:
+        with record_function("fourdgs::rowsort_compact"):
+            ck, cv, compact_dropped = rowsort_compact(
+                key, splat_idx, compact_keep_cols, row_len=compact_row_len,
+                cut=prune_cut, key_shift=QUANT_DEPTH_BITS)
+        key, splat_idx = ck.reshape(-1), cv.reshape(-1)
+    elif compact_keep_cols:
+        key, splat_idx, compact_dropped = compact_pairs(
+            key, splat_idx, DEAD, compact_keep_cols)
+    with record_function("fourdgs::global_sort"):
+        key_s, splat_s = _sort_kv(key, splat_idx)
+    tid_s = torch.where(key_s == DEAD, num_tiles, key_s >> QUANT_DEPTH_BITS)
+    tile_ids = torch.arange(num_tiles + 1, dtype=torch.int32, device=dev)
+    tile_start = searchsorted_i32(key_s, tile_ids << QUANT_DEPTH_BITS)
+    prune_underkeep = tile_pruned = None
+    if prune_cut is not None:
+        # The prune's statistical guarantee, verified: every tile that was
+        # actually pruned must still hold >= the composite cap.
+        counts = tile_start[1:] - tile_start[:-1]
+        t_max = ((tile_ids[:-1] + 1) << QUANT_DEPTH_BITS) - 1
+        tile_pruned = prune_cut < t_max
+        prune_underkeep = (tile_pruned & (counts < depth_prune_cap)).sum(
+            dtype=torch.int32)
+    return TileBinning(pair_splat=splat_s, pair_tile=tid_s,
+                       tile_start=tile_start, overflowed=overflowed,
+                       compact_dropped=compact_dropped,
+                       prune_underkeep=prune_underkeep,
+                       tile_pruned=tile_pruned, prune_cut=prune_cut,
+                       big_ids=big_ids)
+
+
+def depth_prune_cutkeys(key: torch.Tensor, num_tiles: int, cap: int,
+                        stride: int = 67, safety: float = 2.0) -> torch.Tensor:
+    """Per-tile depth cut keys: keep pair iff key <= cut[key >> 20].
+
+    Estimates, per tile, the key of about the (cap * safety)-th nearest pair
+    from a 1/stride sample of the keys: contiguous 256-slot blocks spread
+    evenly over the array (sample_blocks, kernel K3) for large arrays, a
+    plain strided slice for small ones. The stride is prime so the sample
+    walks every residue class of the slot-major layout. Tiles with fewer
+    sampled pairs than the rank keep everything (cut = the tile's maximal
+    key). Returns (T,) int32."""
+    blk = 256
+    take_rows = blk // 128
+    if key.shape[0] < stride * blk * 128 or key.shape[0] % 128:
+        sample = key[::stride]
+    else:
+        sample, = sample_blocks([key], stride_rows=stride * take_rows,
+                                take_rows=take_rows)
+    ss = torch.sort(sample).values
+    tile_ids = torch.arange(num_tiles + 1, dtype=torch.int32,
+                            device=key.device)
+    start = searchsorted_i32(ss, tile_ids << QUANT_DEPTH_BITS)   # (T+1,)
+    r = start[:-1] + int(-(-cap * safety // stride))
+    val = ss[torch.clamp(r, max=ss.shape[0] - 1).long()]
+    keep_all = r >= start[1:]          # fewer sampled than the rank
+    tile_max = (tile_ids[1:] << QUANT_DEPTH_BITS) - 1
+    return torch.where(keep_all, tile_max, torch.minimum(val, tile_max))
+
+
+def searchsorted_i32(sorted_arr: torch.Tensor,
+                     queries: torch.Tensor) -> torch.Tensor:
+    """Left-bisect positions of `queries` in 1-D `sorted_arr`, int32."""
+    return torch.searchsorted(sorted_arr, queries, out_int32=True)
+
+
+def tile_pixel_ndc(width: int, height: int, tile_h: int, tile_w: int,
+                   device="cpu", dtype=torch.float32):
+    """NDC coords of pixel centers for every tile: (px, py) of shape
+    (T, tile_h * tile_w) with T = ny * nx, plus the (ny, nx) grid. Padding
+    tiles on the bottom/right get coordinates too; callers crop."""
+    ny, nx = tile_grid(width, height, tile_h, tile_w)
+
+    def ar(k):
+        return torch.arange(k, dtype=torch.int32, device=device)
+    gy = (ar(ny)[:, None, None, None] * tile_h
+          + ar(tile_h)[None, None, :, None]).to(dtype)
+    gx = (ar(nx)[None, :, None, None] * tile_w
+          + ar(tile_w)[None, None, None, :]).to(dtype)
+    px = (gx + 0.5) / width * 2.0 - 1.0
+    py = 1.0 - (gy + 0.5) / height * 2.0
+    shape = (ny, nx, tile_h, tile_w)
+    px = torch.broadcast_to(px, shape).reshape(ny * nx, tile_h * tile_w)
+    py = torch.broadcast_to(py, shape).reshape(ny * nx, tile_h * tile_w)
+    return px, py, (ny, nx)
+
+
+def assemble_image(tiles_rgba: torch.Tensor, width: int, height: int,
+                   tile_h: int, tile_w: int) -> torch.Tensor:
+    """(T, tile_h*tile_w, 4) tile buffers -> (H, W, 4) image (cropped)."""
+    ny, nx = tile_grid(width, height, tile_h, tile_w)
+    img = tiles_rgba.reshape(ny, nx, tile_h, tile_w, 4)
+    img = img.permute(0, 2, 1, 3, 4).reshape(ny * tile_h, nx * tile_w, 4)
+    return img[:height, :width]

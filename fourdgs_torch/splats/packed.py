@@ -1,0 +1,117 @@
+"""Scalar structure-of-arrays 4D splat math (port of fourdgs/splats/packed.py).
+
+A scene is a dict of (N,) float32 component tensors (`PARAM4D_FIELDS`).
+Symmetric matrices are carried as their upper triangles:
+
+    cov3: (c00, c01, c02, c11, c12, c22)
+    cov4: cov3 + (c03, c13, c23, c33)
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+PARAM4D_FIELDS = ("px", "py", "pz", "pt", "qw", "qx", "qy", "qz",
+                  "sx", "sy", "sz", "lifetime", "fade", "vx", "vy", "vz",
+                  "cr", "cg", "cb", "ca")
+
+
+def params4d_from_numpy(params_np: Mapping[str, np.ndarray],
+                        device="cpu") -> Dict[str, torch.Tensor]:
+    """The reference's packed parameter dict (numpy arrays) -> the port's
+    tensors on `device`. Checks the field set, dtype float32, 1-D and equal
+    lengths, and raises ValueError on any mismatch."""
+    fields = set(params_np)
+    if fields != set(PARAM4D_FIELDS):
+        missing = sorted(set(PARAM4D_FIELDS) - fields)
+        extra = sorted(fields - set(PARAM4D_FIELDS))
+        raise ValueError(f"param fields differ: missing {missing}, "
+                         f"unexpected {extra}")
+    n = None
+    out = {}
+    for k in PARAM4D_FIELDS:
+        a = np.asarray(params_np[k])
+        if a.dtype != np.float32:
+            raise ValueError(f"field {k!r} has dtype {a.dtype}, want float32")
+        if a.ndim != 1:
+            raise ValueError(f"field {k!r} has shape {a.shape}, want (N,)")
+        if n is None:
+            n = a.shape[0]
+        elif a.shape[0] != n:
+            raise ValueError(f"field {k!r} has length {a.shape[0]}, want {n}")
+        out[k] = torch.tensor(a, device=device)
+    return out
+
+
+def rot_from_quat(qw, qx, qy, qz):
+    """Component form of glm::toMat3; normalizes internally. Returns the 9
+    rotation components r00..r22."""
+    inv = torch.rsqrt(qw * qw + qx * qx + qy * qy + qz * qz + 1e-30)
+    w, x, y, z = qw * inv, qx * inv, qy * inv, qz * inv
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return (1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy))
+
+
+def cov3_from_quat_scale(qw, qx, qy, qz, sx, sy, sz):
+    """Sigma3 = R diag(s^2) R^T in components."""
+    r00, r01, r02, r10, r11, r12, r20, r21, r22 = rot_from_quat(qw, qx, qy, qz)
+    s0, s1, s2 = sx * sx, sy * sy, sz * sz
+    c00 = r00 * r00 * s0 + r01 * r01 * s1 + r02 * r02 * s2
+    c01 = r00 * r10 * s0 + r01 * r11 * s1 + r02 * r12 * s2
+    c02 = r00 * r20 * s0 + r01 * r21 * s1 + r02 * r22 * s2
+    c11 = r10 * r10 * s0 + r11 * r11 * s1 + r12 * r12 * s2
+    c12 = r10 * r20 * s0 + r11 * r21 * s1 + r12 * r22 * s2
+    c22 = r20 * r20 * s0 + r21 * r21 * s1 + r22 * r22 * s2
+    return c00, c01, c02, c11, c12, c22
+
+
+def cov4_motion(params: Dict[str, torch.Tensor]):
+    """Sigma4 of the motion parameterization in components. Returns the
+    10-tuple (c00, c01, c02, c11, c12, c22, c03, c13, c23, c33)."""
+    st = (params["lifetime"] * params["lifetime"]) / (
+        -2.0 * torch.log(params["fade"]))
+    tx, ty, tz = params["vx"] * st, params["vy"] * st, params["vz"] * st
+    c00, c01, c02, c11, c12, c22 = cov3_from_quat_scale(
+        params["qw"], params["qx"], params["qy"], params["qz"],
+        params["sx"], params["sy"], params["sz"])
+    inv_st = 1.0 / st
+    return (c00 + tx * tx * inv_st, c01 + tx * ty * inv_st,
+            c02 + tx * tz * inv_st, c11 + ty * ty * inv_st,
+            c12 + ty * tz * inv_st, c22 + tz * tz * inv_st,
+            tx, ty, tz, st)
+
+
+def slice4d(params: Dict[str, torch.Tensor], cov4, t: float,
+            min_opacity: float = 0.0):
+    """Conditional slice at time t plus temporal opacity, in components.
+    Returns (mx, my, mz, cov3_6tuple, opacity, (sort_mx, sort_my, sort_mz)).
+
+    The sort mean reproduces the reference's quirky sorting position,
+    advanced by Sigma_{4,1:3} itself rather than the conditional velocity.
+    """
+    (c00, c01, c02, c11, c12, c22, c03, c13, c23, c33) = cov4
+    dt = float(t) - params["pt"]
+    inv_st = 1.0 / c33
+    mx = params["px"] + c03 * inv_st * dt
+    my = params["py"] + c13 * inv_st * dt
+    mz = params["pz"] + c23 * inv_st * dt
+    s00 = c00 - c03 * c03 * inv_st
+    s01 = c01 - c03 * c13 * inv_st
+    s02 = c02 - c03 * c23 * inv_st
+    s11 = c11 - c13 * c13 * inv_st
+    s12 = c12 - c13 * c23 * inv_st
+    s22 = c22 - c23 * c23 * inv_st
+    opacity = torch.clamp(torch.exp(-0.5 * dt * dt * inv_st),
+                          min=float(min_opacity))
+    sort_mx = params["px"] + c03 * dt
+    sort_my = params["py"] + c13 * dt
+    sort_mz = params["pz"] + c23 * dt
+    return (mx, my, mz, (s00, s01, s02, s11, s12, s22), opacity,
+            (sort_mx, sort_my, sort_mz))

@@ -1,0 +1,113 @@
+"""Hygiene of the `fourdgs_torch` package: it never imports JAX, its kernel
+modules import without nvcc or triton, CPU tensors take the plain versions
+without launching (or building) anything, and the parameter hand-over
+rejects malformed input."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from fourdgs_torch.ops import composite_cuda, lookup_cuda, sort_cuda
+from fourdgs_torch.splats.packed import PARAM4D_FIELDS, params4d_from_numpy
+
+REPO = Path(__file__).resolve().parents[1]
+KERNELS = (composite_cuda.COMPOSITE, sort_cuda.ROWSORT,
+           lookup_cuda.SAMPLE_BLOCKS)
+
+
+def test_package_never_imports_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import fourdgs_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages("
+        "fourdgs_torch.__path__, 'fourdgs_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "assert len(mods) >= 14, mods\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'fourdgs', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(mods))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    for k in KERNELS:
+        k.launches = 0
+    key = torch.arange(4096, dtype=torch.int32)
+    lookup_cuda.sample_blocks([key], stride_rows=3, take_rows=2)
+    sort_cuda.rowsort_compact(key, key, 8, row_len=16,
+                              cut=torch.tensor([5 << 20], dtype=torch.int32))
+    rec = torch.zeros((2, 16, 128))
+    counts = torch.tensor([3, 0], dtype=torch.int32)
+    kx = torch.zeros((2, 1, 256))
+    carry = composite_cuda.identity_carry(2, 256)
+    out = composite_cuda.composite_records(rec, counts, kx, kx, carry)
+    composite_cuda.composite_records_at(rec[:1], counts[:1],
+                                        torch.tensor([1]), kx, kx, out)
+    for k in KERNELS:
+        assert k.launches == 0, k.symbol
+        assert k._fn is None, k.symbol             # nothing was built
+
+
+def test_wrappers_refuse_other_devices():
+    key = torch.zeros(1024, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        lookup_cuda.sample_blocks([key], stride_rows=1, take_rows=1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sort_cuda.rowsort_compact(key, key, 8, row_len=16)
+
+
+def test_wrappers_refuse_mixed_devices():
+    """A CUDA launch would read a host pointer: mixed devices must raise
+    before any launch."""
+    key = torch.zeros(1024, dtype=torch.int32)
+    meta_cut = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        sort_cuda.rowsort_compact(key, key, 8, row_len=16, cut=meta_cut)
+    rec = torch.zeros((2, 16, 128))
+    kx = torch.zeros((2, 1, 256))
+    carry = composite_cuda.identity_carry(2, 256)
+    meta_counts = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        composite_cuda.composite_records(rec, meta_counts, kx, kx, carry)
+
+
+def _params(n=7):
+    rng = np.random.default_rng(0)
+    return {k: rng.random(n).astype(np.float32) for k in PARAM4D_FIELDS}
+
+
+def test_params4d_from_numpy_round_trip():
+    p = _params()
+    t = params4d_from_numpy(p)
+    assert set(t) == set(PARAM4D_FIELDS)
+    for k in PARAM4D_FIELDS:
+        assert t[k].dtype == torch.float32
+        np.testing.assert_array_equal(t[k].numpy(), p[k])
+
+
+@pytest.mark.parametrize("fault", ["missing", "extra", "dtype", "length",
+                                   "ndim"])
+def test_params4d_from_numpy_rejects(fault):
+    p = _params()
+    if fault == "missing":
+        del p["fade"]
+    elif fault == "extra":
+        p["spin"] = p["px"]
+    elif fault == "dtype":
+        p["qw"] = p["qw"].astype(np.float64)
+    elif fault == "length":
+        p["cr"] = p["cr"][:-1]
+    else:
+        p["sx"] = p["sx"][:, None]
+    with pytest.raises(ValueError):
+        params4d_from_numpy(p)
