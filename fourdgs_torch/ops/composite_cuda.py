@@ -1,6 +1,7 @@
 """Per-tile ordered alpha compositing over packed splat records (port of
-fourdgs/ops/composite_pallas.py: `record_fields`, `pack_records` without
-pack8, `identity_carry`, `composite_records`, `composite_records_at`).
+fourdgs/ops/composite_pallas.py: `record_fields` (with `pad_to`, through the
+pack kernel K4), `pack_records` without pack8, `identity_carry`,
+`composite_records`, `composite_records_at`).
 
 Kernel K1 (`csrc/composite.cu`) plus its plain PyTorch version. A CPU tensor
 runs the plain version; a CUDA tensor launches the kernel.
@@ -16,6 +17,7 @@ import ctypes
 
 import torch
 
+from fourdgs_torch.ops import pack_cuda
 from fourdgs_torch.ops._build import CudaKernel
 
 CHUNK = 128      # records per early-exit step
@@ -35,11 +37,20 @@ COMPOSITE = CudaKernel(
     extra_flags=("-fmad=false",))
 
 
-def record_fields(proj, p00, p11) -> torch.Tensor:
+def record_fields(proj, p00, p11, pad_to: int | None = None) -> torch.Tensor:
     """(10, N) record field matrix for every projected splat. a_eff
     premultiplies color alpha, temporal opacity and the cull flag; centers
-    are in k units (NDC offset over the projection diagonal)."""
+    are in k units (NDC offset over the projection diagonal).
+
+    With pad_to, the matrix is (10, pad_to) with zero columns past N, built
+    by the pack kernel K4 (ops/pack_cuda.py) exactly as the reference's
+    pack kernel builds it: centers times 1/p00 and 1/p11, and l == 0 maps
+    to il == 0."""
     a_eff = proj.opacity * proj.a * proj.valid.to(proj.mx.dtype)
+    if pad_to is not None:
+        return pack_cuda.pack_record_fields(
+            proj.mx, proj.my, proj.v0x, proj.v0y, proj.l0, proj.l1, proj.r,
+            proj.g, proj.b, a_eff, p00, p11, pad_to)
     return torch.stack([
         proj.mx / p00,
         proj.my / p11,

@@ -1,0 +1,409 @@
+"""Streaming banded-OIT tail compositor (port of fourdgs/ops/tail_pallas.py,
+forward, without the within-band weighting knobs).
+
+The tail composites every (tile, splat) pair beyond the head's per-tile cut
+(key > cut) with no sort and no gather: splats stream in chunks (in Morton
+order, so a chunk is local on screen); each chunk gets one of K global depth
+bands by its mean quantized depth; per (band, tile, coarse sample) the
+kernel accumulates six order-independent planes
+
+    A = sum(alpha), Ar/Ag/Ab = sum(alpha * rgb), A2 = sum(alpha^2),
+    L = sum(log1p(-alpha)).
+
+`fold_upsample_tail` composites the bands front to back, upsamples the
+coarse field bilinearly and `blend_tail_under_head` puts it under the
+head's per-pixel transmittance. The reference's module docstring gives the
+design in full.
+
+Kernels K6 (`csrc/tail_prepass.cu`, per-chunk band, window rect and slot
+mask) and K7 (`csrc/tail.cu`, the accumulate), each with its plain PyTorch
+version: `step_bands_rects` + `step_slot_masks` for K6,
+`tail_accumulate_plain` (the reference's `tail_accumulate_xla`, batched)
+for K7. A CPU tensor runs the plain version; a CUDA tensor launches the
+kernel.
+
+The reference's band assignment sums a chunk's depth bits in int32, which
+wraps past 2^31 for chunks with more than about 8,000 live entries (ROADMAP
+C-R8); both versions here wrap the same way, so the bands agree with it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from fourdgs_torch.ops import pack_cuda
+from fourdgs_torch.ops._build import CudaKernel
+from fourdgs_torch.render.tiles import QUANT_DEPTH_BITS
+
+ALPHA_MAX = 1.0 - 1e-6
+_QSCALE = math.sqrt(32.0)       # folds exp(-0.5 * 64 q) into the prescale
+N_PLANES = 6                      # A, Ar, Ag, Ab, A2, L
+_P_A, _P_AR, _P_AG, _P_AB, _P_A2, _P_L = range(N_PLANES)
+WIN_TX = 2                        # window rect unit: 2 tile columns
+WIN_TY = 16                       # x 16 tile rows, rows 8-aligned
+CUT_ENTRIES = 2048                # cut table, padded with INT32_MAX
+MASK_BITS = 30                    # slot-mask bits; later slots stay live
+SUB = 512                         # pairs per slot-mask sub-block
+INT32_MAX = 2 ** 31 - 1
+# Pairs per batch of the plain accumulate: bounds its (pairs, samples)
+# temporaries on the card at the 10M-splat frame.
+PLAIN_BATCH_PAIRS = 1 << 20
+
+_FLAGS = ("-fmad=false",)
+TAIL_PREPASS = CudaKernel(
+    "tail_prepass.cu", "fourdgs_tail_prepass",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6, extra_flags=_FLAGS)
+TAIL_ACCUMULATE = CudaKernel(
+    "tail.cu", "fourdgs_tail_accumulate",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12, extra_flags=_FLAGS)
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def ny_padded(ny: int) -> int:
+    """Accumulator rows per tile column: a window starting at an 8-aligned
+    row below ny never runs past them."""
+    return _ceil_to(ny + WIN_TY, 8)
+
+
+def _device(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# host functions (plain PyTorch in the port, as they are XLA in the reference)
+# ---------------------------------------------------------------------------
+
+def tail_meta(alive, tx0, tx1, ty0, ty1, dbits, chunk: int) -> torch.Tensor:
+    """(6, Np) int32 meta operand [tx0, tx1, ty0, ty1, dbits, span], span
+    the raw bbox tile count (0 for dead splats), padded with dead entries
+    to a `chunk` multiple. Which spans a stream owns is applied in the
+    kernel, so one meta array serves the main and the big-tier stream."""
+    return pack_cuda.pack_meta_rows(alive, tx0, tx1, ty0, ty1, dbits,
+                                    _ceil_to(tx0.shape[0], chunk))
+
+
+def _live_window(span, budget_lo: int, budget_hi: int):
+    return (span > budget_lo) & (span <= budget_hi)
+
+
+def step_bands_rects(meta, chunk: int, band_cuts, budget_lo: int = 0,
+                     budget_hi: int = 1 << 30):
+    """Per chunk of `chunk` splats: (band (S,), rect (S, 4) = [txw, tyw, nwx,
+    nwy]); the windows (txw + 2 i, tyw + 16 j), tyw 8-aligned, cover every
+    live tile of the chunk. (budget_lo, budget_hi] is the stream's span
+    window. The mean depth is an int32 sum with wrap-around and a floor
+    division, exactly the reference's arithmetic (C-R8)."""
+    tx0, tx1, ty0, ty1, dbits, span = [m.reshape(-1, chunk) for m in meta]
+    live = _live_window(span, budget_lo, budget_hi)
+    any_live = live.any(dim=1)
+
+    def red(x, fill, fn):
+        v = fn(torch.where(live, x, fill), dim=1)
+        return torch.where(any_live, v, 0)
+    mtx0 = red(tx0, INT32_MAX, torch.amin)
+    mty0 = red(ty0, INT32_MAX, torch.amin)
+    mtx1 = red(tx1, -1, torch.amax)
+    mty1 = red(ty1, -1, torch.amax)
+    tyw = torch.div(mty0, 8, rounding_mode="floor") * 8
+    nwx = torch.div(mtx1 - mtx0, WIN_TX, rounding_mode="floor") + 1
+    nwy = torch.div(mty1 - tyw, WIN_TY, rounding_mode="floor") + 1
+    d_sum = torch.where(live, dbits, 0).sum(dim=1, dtype=torch.int32)
+    d_cnt = torch.clamp(live.sum(dim=1, dtype=torch.int32), min=1)
+    d_mean = torch.div(d_sum, d_cnt, rounding_mode="floor")
+    # band_cuts are ascending quantiles of NEGATED dbits: band 0 is nearest.
+    band = ((-d_mean)[:, None] >= band_cuts[None, :].to(torch.int32)).sum(
+        dim=1, dtype=torch.int32)
+    rect = torch.stack([mtx0, tyw, nwx, nwy], dim=1).to(torch.int32)
+    return band, rect
+
+
+def step_slot_masks(meta, chunk: int, budget: int, budget_lo: int = 0,
+                    sub: int = SUB) -> torch.Tensor:
+    """(S,) int32 per-(slot, sub-block) liveness bits: bit s * nsub + j is
+    set iff some pair of the chunk's j-th `sub`-wide block has span >
+    max(s, budget_lo) (and span <= budget), a superset of the kernel's live
+    condition. Only the first 30 bits are written; slots past them stay
+    live."""
+    span = meta[5]
+    nsub = max(1, chunk // sub)
+    sp = torch.where(_live_window(span, budget_lo, budget), span, 0)
+    m = sp.reshape(-1, nsub, min(sub, chunk)).amax(dim=2)      # (S, nsub)
+    mask = torch.zeros(m.shape[0], dtype=torch.int32, device=span.device)
+    for s in range(budget):
+        if (s + 1) * nsub > MASK_BITS:
+            break
+        bits = (m > max(s, budget_lo)).to(torch.int32)
+        for j in range(nsub):
+            mask = mask | (bits[:, j] << (s * nsub + j))
+    return mask
+
+
+def global_band_cuts(sample_keys, k_bands: int) -> torch.Tensor:
+    """(K-1,) ascending cuts on NEGATED depth bits: the depth quantiles of
+    the live keys of a sample (dead = INT32_MAX). Band 0 is the nearest."""
+    dead_d = -(1 << QUANT_DEPTH_BITS)
+    d = torch.where(sample_keys == INT32_MAX, dead_d,
+                    -(sample_keys & ((1 << QUANT_DEPTH_BITS) - 1)))
+    ds = torch.sort(d).values
+    m = (ds > dead_d).sum(dtype=torch.int32)
+    start = ds.shape[0] - m
+    qs = start + torch.div(
+        torch.arange(1, k_bands, dtype=torch.int32, device=ds.device) * m,
+        k_bands, rounding_mode="floor")
+    return ds[torch.clamp(qs, max=ds.shape[0] - 1).long()]
+
+
+def tail_params_row(tile_h: int, tile_w: int, block, w: int, h: int, p00, p11,
+                    ty_base: int = 0) -> torch.Tensor:
+    """(8,) float32 kernel constants [kx_t, kx_j, kx_0, ky_t, ky_j, ky_0,
+    bx2, by2]: sample coordinates in k units are affine in the tile and
+    sample index; bx2, by2 are the box-filter variances of a coarse block
+    (by, bx) in k units squared."""
+    by, bx = block
+    p00 = torch.as_tensor(p00, dtype=torch.float32)
+    p11 = torch.as_tensor(p11, dtype=torch.float32, device=p00.device)
+
+    def c(x):
+        # A float32 constant on the device, so every quotient is a true
+        # float32 division (a Python number divided by a tensor, or a CUDA
+        # tensor by a Python number, multiplies by a reciprocal instead).
+        return p00.new_tensor(x)
+    kx_t = c(tile_w * 2.0 / w) / p00
+    kx_j = c(bx * 2.0 / w) / p00
+    kx_0 = c((bx * 0.5) * 2.0 / w - 1.0) / p00
+    ky_t = c(-(tile_h * 2.0 / h)) / p11
+    ky_j = c(-(by * 2.0 / h)) / p11
+    ky_0 = c(1.0 - (ty_base * tile_h + by * 0.5) * 2.0 / h) / p11
+    bx2 = (c(bx * 2.0 / w) / p00) ** 2 / c(12.0)
+    by2 = (c(by * 2.0 / h) / p11) ** 2 / c(12.0)
+    return torch.stack([kx_t, kx_j, kx_0, ky_t, ky_j, ky_0, bx2, by2])
+
+
+def combine_bands(acc):
+    """Fold per-band OIT sums front to back: acc (T, K, 6, S) -> (rgb (T, 3,
+    S), alpha (T, S), trans (T, S)). Band k absorbs 1 - exp(L_k) (exact:
+    products commute) with color (Ar..)/A and alpha A2/A, under the
+    exclusive running transmittance of the nearer bands."""
+    has = acc[:, :, _P_A] > 0.0
+    a_safe = torch.where(has, acc[:, :, _P_A], 1.0)
+    tau = torch.exp(acc[:, :, _P_L])
+    t_run = torch.cumprod(tau, dim=1)
+    t_excl = torch.cat([torch.ones_like(t_run[:, :1]), t_run[:, :-1]], dim=1)
+    wgt = torch.where(has, t_excl * (1.0 - tau) / a_safe, 0.0)
+    rgb = torch.einsum("tks,tcks->tcs", wgt,
+                       acc[:, :, _P_AR:_P_AB + 1].permute(0, 2, 1, 3))
+    alpha = (wgt * acc[:, :, _P_A2]).sum(dim=1)
+    return rgb, alpha, t_run[:, -1]
+
+
+def fold_upsample_tail(acc, k_bands: int, nx: int, ny: int, tile_h: int,
+                       tile_w: int, s_cy: int, s_cx: int) -> torch.Tensor:
+    """The (rows, cols) band accumulator -> the full-resolution tail field
+    (ny * nx, 5, tile_h * tile_w) [r, g, b, a, trans]. The bilinear upsample
+    (half-pixel centers, edges clamped, as jax.image.resize does when it
+    upsamples) runs on the whole coarse image, so the field is smooth
+    across tile borders."""
+    n_samp = s_cy * s_cx
+    acc_r = acc.reshape(k_bands, nx, ny_padded(ny), N_PLANES, n_samp)[:, :, :ny]
+    acc_t = acc_r.permute(2, 1, 0, 3, 4).reshape(ny * nx, k_bands, N_PLANES,
+                                                 n_samp)
+    rgb_c, alpha_c, trans_c = combine_bands(acc_t)
+    coarse = torch.cat([rgb_c, alpha_c[:, None], trans_c[:, None]], dim=1)
+    img_c = coarse.reshape(ny, nx, 5, s_cy, s_cx).permute(2, 0, 3, 1, 4) \
+        .reshape(1, 5, ny * s_cy, nx * s_cx)
+    up = F.interpolate(img_c, size=(ny * tile_h, nx * tile_w),
+                       mode="bilinear", align_corners=False)[0]
+    return up.reshape(5, ny, tile_h, nx, tile_w).permute(1, 3, 0, 2, 4) \
+        .reshape(ny * nx, 5, tile_h * tile_w)
+
+
+def blend_tail_under_head(carry, upt):
+    """Blend the tail field under the head carry's per-pixel transmittance:
+    carry (T, >=5, P) [r, g, b, a, trans, ...], upt (T, 5, P) -> (T, 5, P)."""
+    t_head = carry[:, 4:5]
+    return torch.cat([carry[:, 0:4] + t_head * upt[:, 0:4],
+                      t_head * upt[:, 4:5]], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# K6: tail prepass
+# ---------------------------------------------------------------------------
+
+def tail_prepass(meta, band_cuts, chunk: int, budget: int,
+                 budget_lo: int = 0, k_bands: int = 8):
+    """Per-chunk (band (S,), rect (S, 4), slot_mask (S,)) in one pass over
+    the (6, Np) meta matrix: what step_bands_rects and step_slot_masks
+    compute, for the stream with span window (budget_lo, budget]."""
+    npts = meta.shape[1]
+    if meta.dtype != torch.int32 or meta.shape[0] != 6 or npts % chunk:
+        raise ValueError(f"meta must be (6, Np) int32 with Np % {chunk} == 0,"
+                         f" got {tuple(meta.shape)} {meta.dtype}")
+    if band_cuts.shape != (k_bands - 1,) or band_cuts.device != meta.device:
+        raise ValueError(f"band_cuts must be ({k_bands - 1},) on the meta's "
+                         "device")
+    if _device(meta) == "cpu":
+        band, rect = step_bands_rects(meta, chunk, band_cuts, budget_lo,
+                                      budget)
+        return band, rect, step_slot_masks(meta, chunk, budget, budget_lo)
+    steps = npts // chunk
+    meta = meta.contiguous()
+    cuts = band_cuts.to(torch.int32).contiguous()
+    out = torch.empty((steps, 6), dtype=torch.int32, device=meta.device)
+    TAIL_PREPASS(meta.data_ptr(), cuts.data_ptr(), out.data_ptr(), npts,
+                 chunk, budget, budget_lo, k_bands - 1, steps,
+                 stream=_stream(meta))
+    return out[:, 0], out[:, 1:5], out[:, 5]
+
+
+# ---------------------------------------------------------------------------
+# K7: tail accumulate
+# ---------------------------------------------------------------------------
+
+def _cut_table(cut: torch.Tensor) -> torch.Tensor:
+    if cut.shape[0] > CUT_ENTRIES:
+        raise ValueError(f"cut table of {cut.shape[0]} tiles exceeds "
+                         f"{CUT_ENTRIES}")
+    return torch.cat([cut.to(torch.int32),
+                      cut.new_full((CUT_ENTRIES - cut.shape[0],), INT32_MAX,
+                                   dtype=torch.int32)])
+
+
+def tail_accumulate_plain(fields, meta, band, cut, params_row, k_bands: int,
+                          nx: int, ny: int, chunk: int, budget: int,
+                          s_cy: int, s_cx: int, budget_lo: int = 0,
+                          exact_clip: bool = False):
+    """The reference's `tail_accumulate_xla` (f32, scatter-add), evaluated
+    for the live pairs of PLAIN_BATCH_PAIRS splats at a time."""
+    n_samp = s_cy * s_cx
+    npts = meta.shape[1]
+    ny_pad = ny_padded(ny)
+    rows_per_band = nx * ny_pad
+    dev = meta.device
+    acc = torch.zeros((k_bands * rows_per_band, N_PLANES * n_samp),
+                      dtype=torch.float32, device=dev)
+    kx_t, kx_j, kx_0, ky_t, ky_j, ky_0, bx2, by2 = params_row.unbind()
+    jidx = torch.arange(n_samp, device=dev)
+    jy = torch.div(jidx, s_cx, rounding_mode="floor").to(torch.float32)
+    jx = (jidx % s_cx).to(torch.float32)
+    cut_pad = _cut_table(cut)
+    step = max(chunk, PLAIN_BATCH_PAIRS // chunk * chunk)
+    for p0 in range(0, npts, step):
+        p1 = min(npts, p0 + step)
+        tx0, tx1, ty0, ty1, dbits, span = meta[:, p0:p1]
+        f = fields[:, p0:p1]
+        band_b = torch.repeat_interleave(band[p0 // chunk:p1 // chunk], chunk)
+        nxs = torch.clamp(tx1 - tx0 + 1, min=1)
+        for s in range(budget):
+            oy = s // nxs
+            ox = s - oy * nxs
+            live = ((s < span) & (span > budget_lo) & (span <= budget)
+                    & (oy <= ty1 - ty0))
+            tx = tx0 + ox
+            ty = ty0 + oy
+            tid = ty * nx + tx
+            key = (tid << QUANT_DEPTH_BITS) | dbits
+            live &= key > cut_pad[torch.clamp(tid, 0, CUT_ENTRIES - 1).long()]
+            idx = live.nonzero().squeeze(1)
+            if idx.numel() == 0:
+                continue
+            sx, sy, v0x, v0y, il0, il1, cr, cg, cb, a_eff = f[:, idx]
+            m0 = 1.0 / torch.sqrt(1.0 + (bx2 * (v0x * v0x) + by2 * (v0y * v0y))
+                                  * (il0 * il0))
+            m1 = 1.0 / torch.sqrt(1.0 + (bx2 * (v0y * v0y) + by2 * (v0x * v0x))
+                                  * (il1 * il1))
+            il0w = il0 * m0 * _QSCALE
+            il1w = il1 * m1 * _QSCALE
+            gate = a_eff * (m0 * m1)
+            txf = tx[idx].to(torch.float32)[:, None]
+            tyf = ty[idx].to(torch.float32)[:, None]
+            kxs = kx_t * txf + kx_j * jx[None, :] + kx_0
+            kys = ky_t * tyf + ky_j * jy[None, :] + ky_0
+            dx = kxs - sx[:, None]
+            dy = kys - sy[:, None]
+            n0 = (v0x[:, None] * dx + v0y[:, None] * dy) * il0w[:, None]
+            n1 = (v0y[:, None] * dx - v0x[:, None] * dy) * il1w[:, None]
+            w = torch.exp(-(n0 * n0 + n1 * n1))
+            cov = w >= 1e-4
+            if exact_clip:
+                cov &= ((torch.abs(n0) <= (0.5 * _QSCALE) * m0[:, None])
+                        & (torch.abs(n1) <= (0.5 * _QSCALE) * m1[:, None]))
+            alpha = torch.clamp(torch.where(cov, gate[:, None] * w, 0.0),
+                                max=ALPHA_MAX)
+            planes = torch.cat([alpha, alpha * cr[:, None],
+                                alpha * cg[:, None], alpha * cb[:, None],
+                                alpha * alpha, torch.log1p(-alpha)], dim=1)
+            row = (band_b[idx] * rows_per_band + tx[idx] * ny_pad + ty[idx])
+            acc.index_add_(0, row.long(), planes)
+    return acc
+
+
+def tail_accumulate(fields, meta, band, rect, cut, params_row, k_bands: int,
+                    nx: int, ny: int, chunk: int, budget: int, s_cy: int,
+                    s_cx: int, budget_lo: int = 0, slot_mask=None,
+                    wd_ab=None, alpha_pow: int = 0,
+                    exact_clip: bool = False) -> torch.Tensor:
+    """Accumulate the tail's six planes for every live pair of the stream.
+
+    fields (10, <=Np) f32 (zero-padded to Np here when shorter); meta (6,
+    Np) i32, Np a multiple of chunk; band (S,) i32; rect (S, 4) i32 from the
+    prepass (the kernel stages that window in shared memory); cut (T,) i32;
+    params_row (8,) f32; slot_mask (S,) i32 or None (no skipping). A pair of
+    slot s is live iff s < span, budget_lo < span <= budget, the slot's row
+    lies in the bbox, and its key exceeds cut[tile].
+    Returns acc (k_bands * nx * ny_pad, 6 * s_cy * s_cx) f32, row band *
+    nx * ny_pad + tx * ny_pad + ty, column plane * n_samp + sample.
+    The within-band weighting knobs (wd_ab, alpha_pow) are not ported."""
+    if wd_ab is not None or alpha_pow:
+        raise NotImplementedError(
+            "tail_depth_beta / tail_alpha_power are not ported (ROADMAP.md, "
+            "deliberately last)")
+    npts = meta.shape[1]
+    steps = npts // chunk
+    if meta.shape[0] != 6 or meta.dtype != torch.int32 or steps * chunk != npts:
+        raise ValueError(f"meta must be (6, Np) int32 with Np % {chunk} == 0")
+    if fields.shape[0] != 10 or fields.shape[1] > npts \
+            or fields.dtype != torch.float32:
+        raise ValueError(f"fields must be (10, <= {npts}) float32")
+    if band.shape != (steps,) or rect.shape != (steps, 4):
+        raise ValueError("band must be (S,) and rect (S, 4)")
+    for t in (fields, band, rect, cut, params_row) + (
+            () if slot_mask is None else (slot_mask,)):
+        if t.device != meta.device:
+            raise ValueError("all tail inputs must share a device")
+    if fields.shape[1] != npts:
+        fields = F.pad(fields, (0, npts - fields.shape[1]))
+    if _device(meta) == "cpu":
+        return tail_accumulate_plain(fields, meta, band, cut, params_row,
+                                     k_bands, nx, ny, chunk, budget, s_cy,
+                                     s_cx, budget_lo, exact_clip)
+    n_samp = s_cy * s_cx
+    ny_pad = ny_padded(ny)
+    acc = torch.zeros((k_bands * nx * ny_pad, N_PLANES * n_samp),
+                      dtype=torch.float32, device=meta.device)
+    fields = fields.contiguous()
+    meta = meta.contiguous()
+    band = band.to(torch.int32).contiguous()
+    rect = rect.to(torch.int32).contiguous()
+    mask = None if slot_mask is None else slot_mask.to(torch.int32).contiguous()
+    cut_t = _cut_table(cut).contiguous()
+    params = params_row.to(torch.float32).contiguous()
+    TAIL_ACCUMULATE(fields.data_ptr(), meta.data_ptr(), band.data_ptr(),
+                    rect.data_ptr(), None if mask is None else mask.data_ptr(),
+                    cut_t.data_ptr(), params.data_ptr(), acc.data_ptr(),
+                    npts, steps, chunk, budget, budget_lo, nx, ny_pad, s_cx,
+                    n_samp, k_bands, int(exact_clip), SUB,
+                    stream=_stream(meta))
+    return acc

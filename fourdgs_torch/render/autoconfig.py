@@ -1,8 +1,8 @@
 """Automatic pipeline configuration from scene and image size (port of
 fourdgs/render/autoconfig.py, same knob values; the reference module gives
-the rationale of each). The converged branch configures the banded tail,
-which this package does not render yet; the function still returns it so
-both branches stay identical to the reference.
+the rationale of each). Both branches render: converged (the default, an
+exact head plus the banded-OIT tail; scenes should be Morton-ordered once,
+splats/packed.morton_order) and non-converged (progressive deepening).
 """
 
 from __future__ import annotations

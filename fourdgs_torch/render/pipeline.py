@@ -1,12 +1,14 @@
 """The tiled render pipeline: project -> bin -> sort -> composite (port of
 fourdgs/render/pipeline.py, quantized-depth branch with the hand-written
-composite kernel and progressive deepening).
+kernels): the exact head with progressive deepening (`tail_mode="off"`) or,
+converged, one head pass plus the streaming banded-OIT tail over every
+other pair (`tail_mode="banded"`).
 
 `RenderConfig` keeps every field name and default of the reference, so a
 reference config converts with `RenderConfig(**dataclasses.asdict(cfg))`.
 `backend="pallas"` names the hand-written kernels (here CUDA). What is not
 ported yet raises NotImplementedError: the XLA-backend composite, the exact
-sort, tile-row banding and the banded tail (`tail_mode="banded"`).
+sort, tile-row banding and the tail's within-band weighting knobs.
 """
 
 from __future__ import annotations
@@ -15,15 +17,21 @@ import dataclasses
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 
 from fourdgs_torch.core.camera import Camera
+from fourdgs_torch.ops import tail_cuda as TL
 from fourdgs_torch.ops.composite_cuda import (composite_records,
                                               composite_records_at,
                                               identity_carry, pack_records,
                                               record_fields)
+from fourdgs_torch.ops.lookup_cuda import sample_blocks
+from fourdgs_torch.ops.sort_cuda import DEAD
 from fourdgs_torch.render.project import Projected, project_components
 from fourdgs_torch.render.tiles import (assemble_image, bin_splats,
+                                        quantized_depth_bits,
+                                        splat_tile_bbox, tile_grid,
                                         tile_pixel_ndc)
 from fourdgs_torch.splats import packed as PK
 
@@ -87,9 +95,8 @@ def render_projected(proj: Projected, camera: Camera,
         raise NotImplementedError(
             "only backend='pallas' with quantized_depth_sort is ported yet "
             "(ROADMAP.md Queue A, item 9)")
-    if cfg.tail_mode != "off":
-        raise NotImplementedError("the banded tail is not ported yet "
-                                  "(ROADMAP.md, converged slice)")
+    if cfg.tail_mode not in ("off", "banded"):
+        raise ValueError(f"unknown tail_mode {cfg.tail_mode!r}")
     pmat = camera.proj_matrix()
     p00, p11 = pmat[0, 0], pmat[1, 1]
     w, h = camera.width, camera.height
@@ -108,12 +115,14 @@ def render_projected(proj: Projected, camera: Camera,
             pallas_compact=(cfg.compact_backend == "pallas"),
             compact_row_len=cfg.compact_row_len,
             depth_prune_cap=cfg.depth_prune_cap,
-            depth_prune_safety=cfg.depth_prune_safety)
+            depth_prune_safety=cfg.depth_prune_safety,
+            head_cap=(cfg.max_splats_per_tile
+                      if cfg.tail_mode == "banded" else 0))
     bg = torch.tensor(cfg.background, dtype=proj.mx.dtype,
                       device=proj.mx.device)
     with record_function("fourdgs::composite"):
-        tiles, resid = _composite_pallas_progressive(proj, binning, px, py,
-                                                     p00, p11, bg, cfg)
+        tiles, resid = _composite_pallas_progressive(
+            proj, binning, px, py, p00, p11, bg, cfg, image_size=(w, h))
     img = assemble_image(tiles, w, h, cfg.tile_h, cfg.tile_w)
     if not return_aux:
         return img
@@ -135,23 +144,40 @@ def render_projected(proj: Projected, camera: Camera,
 
 
 def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
-                                  background, cfg: RenderConfig):
-    """Progressive-deepening composite.
+                                  background, cfg: RenderConfig,
+                                  image_size=None):
+    """Progressive-deepening composite, or head plus banded tail.
 
     Pass 1 composites every tile's nearest `max_splats_per_tile` pairs. Each
     further pass selects up to round(deepening_fraction * T) (at least 128)
     tiles that are still unsaturated (max transmittance above 1e-6) and
     have pairs left, gathers their next depth slab and composites it into
-    their carry in place. Returns (tiles (T, P, 4), resid (T, P))."""
+    their carry in place. In tail mode (`tail_mode="banded"` with a prune
+    cut) the head owns exactly binning.head_counts pairs per tile, which
+    pass 1 composites whole; the banded tail (`_apply_banded_tail`, needs
+    image_size = (w, h)) composites every other pair and there is no
+    deepening. Returns (tiles (T, P, 4), resid (T, P))."""
     m = cfg.max_splats_per_tile
     t_tiles, p = px.shape
     dev = px.device
     starts = binning.tile_start[:-1]
     counts_full = binning.tile_start[1:] - starts
+    use_tail = cfg.tail_mode == "banded" and binning.prune_cut is not None
+    if use_tail and binning.head_counts is not None:
+        # The post-sort re-cut: the head owns exactly these nearest pairs.
+        counts_full = binning.head_counts
     pair_pad = _pad_pairs(binning.pair_splat, m)
     kx = (px / p00).reshape(t_tiles, 1, p)
     ky = (py / p11).reshape(t_tiles, 1, p)
-    rec_all = record_fields(proj, p00, p11)
+    if use_tail:
+        # One record matrix serves the head gather and the tail's field
+        # stream, padded to the tail-chunk multiple by the pack kernel (K4)
+        # where the reference uses its pack kernel.
+        npts = -(-proj.mx.shape[0] // cfg.tail_chunk) * cfg.tail_chunk
+        rec_all = record_fields(proj, p00, p11,
+                                pad_to=npts if npts % 1024 == 0 else None)
+    else:
+        rec_all = record_fields(proj, p00, p11)
 
     with record_function("fourdgs::pass1_pack"):
         rows0 = _gather_pair_rows(pair_pad, starts, m)
@@ -163,11 +189,21 @@ def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
                                 identity_carry(t_tiles, p, device=dev))
 
     t_cap = min(t_tiles, max(128, int(round(t_tiles * cfg.deepening_fraction))))
-    schedule = cfg.deepening_schedule or (m,) * (cfg.deepening_passes - 1)
-    if len(schedule) != cfg.deepening_passes - 1 or any(
-            mi % 128 for mi in schedule):
-        raise ValueError(f"bad deepening schedule {schedule} for "
-                         f"{cfg.deepening_passes} passes")
+    if use_tail:
+        # The re-cut keeps head_counts <= max_splats_per_tile, so pass 1
+        # composited the whole head (any violation shows in resid).
+        if image_size is None:
+            raise ValueError("tail mode needs image_size=(w, h)")
+        with record_function("fourdgs::tail"):
+            out = _apply_banded_tail(out, proj, binning, p00, p11, cfg,
+                                     *image_size, rec_all)
+        schedule = ()
+    else:
+        schedule = cfg.deepening_schedule or (m,) * (cfg.deepening_passes - 1)
+        if len(schedule) != cfg.deepening_passes - 1 or any(
+                mi % 128 for mi in schedule):
+            raise ValueError(f"bad deepening schedule {schedule} for "
+                             f"{cfg.deepening_passes} passes")
     if schedule and max(schedule) > m:
         pair_pad = _pad_pairs(binning.pair_splat, max(schedule))
     for mi in schedule:
@@ -197,10 +233,85 @@ def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
     a = out[:, 3, :] + out[:, 4, :] * background[3]
     tiles = torch.cat([rgb, a[:, None, :]], dim=1).permute(0, 2, 1)
     truncated = (counts_full - pairs_done) > 0
-    if binning.tile_pruned is not None:
-        # Pairs dropped by the depth prune are truncation error too.
+    if binning.tile_pruned is not None and not use_tail:
+        # Pairs dropped by the depth prune are truncation error too; with
+        # the tail, pruned pairs are composited, not dropped.
         truncated = truncated | binning.tile_pruned
     return tiles, out[:, 4, :] * truncated[:, None]
+
+
+def _apply_banded_tail(out, proj: Projected, binning, p00, p11,
+                       cfg: RenderConfig, w: int, h: int, fields):
+    """Composite every pair beyond the per-tile head cut into the (T, 8, P)
+    head carry (before the background); `fields` is the (10, >=N) record
+    matrix the head gathered from. Global depth-band cuts from a
+    sample of the live depth bits, then the per-chunk prepass (K6) and the
+    tail accumulate (K7) over the main stream and then over the big-tier
+    ids, then fold the bands, upsample and blend under the head's
+    transmittance. Returns the updated carry."""
+    ny, nx = tile_grid(w, h, cfg.tile_h, cfg.tile_w)
+    alive, tx0, tx1, ty0, ty1 = splat_tile_bbox(proj, p00, p11, w, h,
+                                                cfg.tile_h, cfg.tile_w)
+    dbits = quantized_depth_bits(proj.depth)
+    cut = binning.prune_cut
+    k_bands = cfg.tail_bands
+
+    # Band cuts from a block subsample (K3) at scale; the full array below
+    # 16384 splats. The switch changes the sample and so the cuts.
+    n = dbits.shape[0]
+    db_live = torch.where(alive, dbits, DEAD)
+    if n >= 16384 and n % 128 == 0:
+        db_live, = sample_blocks([db_live], stride_rows=64, take_rows=1)
+    band_cuts = TL.global_band_cuts(db_live, k_bands)
+
+    by, bx = cfg.tail_block
+    s_cy, s_cx = cfg.tile_h // by, cfg.tile_w // bx
+    if s_cy * by != cfg.tile_h or s_cx * bx != cfg.tile_w:
+        raise ValueError(f"tail_block {cfg.tail_block} does not divide the "
+                         f"{cfg.tile_h}x{cfg.tile_w} tile")
+    params_row = TL.tail_params_row(cfg.tile_h, cfg.tile_w, cfg.tail_block,
+                                    w, h, p00, p11)
+    if cfg.tail_depth_beta:
+        raise NotImplementedError("tail_depth_beta is not ported (ROADMAP.md,"
+                                  " deliberately last)")
+    wd = dict(alpha_pow=cfg.tail_alpha_power, exact_clip=cfg.tail_exact_clip)
+    chunk = cfg.tail_chunk
+    budget = cfg.max_tiles_per_splat
+    with record_function("fourdgs::tail_prepass"):
+        meta = TL.tail_meta(alive, tx0, tx1, ty0, ty1, dbits, chunk)
+        band, rect, slot_mask = TL.tail_prepass(meta, band_cuts, chunk,
+                                                budget, k_bands=k_bands)
+    with record_function("fourdgs::tail_main"):
+        acc = TL.tail_accumulate(fields, meta, band, rect, cut, params_row,
+                                 k_bands=k_bands, nx=nx, ny=ny, chunk=chunk,
+                                 budget=budget, s_cy=s_cy, s_cx=s_cx,
+                                 slot_mask=slot_mask, **wd)
+
+    if binning.big_ids is not None:
+        # The big tier: the kept wide-span splat ids re-walked with the big
+        # budget window, exactly the head's big tier.
+        with record_function("fourdgs::tail_big"):
+            ids = binning.big_ids
+            safe = torch.clamp(ids, max=n - 1).long()
+            bfields = fields[:, safe]
+            meta_b = torch.where((ids == DEAD)[None, :], 0, meta[:, safe])
+            chunk_b = min(512, -(-ids.shape[0] // 8) * 8)
+            npad = -(-ids.shape[0] // chunk_b) * chunk_b
+            meta_b = F.pad(meta_b, (0, npad - ids.shape[0]))
+            band_b, rect_b, mask_b = TL.tail_prepass(
+                meta_b, band_cuts, chunk_b, cfg.big_splat_budget,
+                budget_lo=budget, k_bands=k_bands)
+            acc = acc + TL.tail_accumulate(
+                bfields, meta_b, band_b, rect_b, cut, params_row,
+                k_bands=k_bands, nx=nx, ny=ny, chunk=chunk_b,
+                budget=cfg.big_splat_budget, s_cy=s_cy, s_cx=s_cx,
+                budget_lo=budget, slot_mask=mask_b, **wd)
+
+    with record_function("fourdgs::tail_combine"):
+        upt = TL.fold_upsample_tail(acc, k_bands, nx, ny, cfg.tile_h,
+                                    cfg.tile_w, s_cy, s_cx)
+        return torch.cat([TL.blend_tail_under_head(out, upt), out[:, 5:8]],
+                         dim=1)
 
 
 def project_params4d(params: Dict[str, torch.Tensor], camera: Camera,

@@ -44,7 +44,10 @@ class TileBinning:
     compact_dropped: () live pairs lost to the compaction cap (or None)
     prune_underkeep: () pruned tiles left with fewer pairs than the cap
     tile_pruned: (T,) bool, tiles whose list the depth prune cut
-    prune_cut:   (T,) per-tile prune cut keys
+    prune_cut:   (T,) per-tile prune cut keys; with head_cap, the head/tail
+                 boundary (the tail takes exactly the pairs with key > cut)
+    head_counts: (T,) head pairs per tile under the post-sort re-cut (only
+                 with head_cap)
     big_ids:     kept big-tier splat ids (DEAD for empty capacity slots)
     """
     pair_splat: torch.Tensor
@@ -55,6 +58,7 @@ class TileBinning:
     prune_underkeep: Optional[torch.Tensor] = None
     tile_pruned: Optional[torch.Tensor] = None
     prune_cut: Optional[torch.Tensor] = None
+    head_counts: Optional[torch.Tensor] = None
     big_ids: Optional[torch.Tensor] = None
 
 
@@ -269,13 +273,15 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
                pallas_compact: bool = False,
                compact_row_len: int = 8192,
                depth_prune_cap: int = 0,
-               depth_prune_safety: float = 2.0) -> TileBinning:
+               depth_prune_safety: float = 2.0,
+               head_cap: int = 0) -> TileBinning:
     """Build sorted (tile, splat) pairs, quantized-depth branch.
 
     Pipeline: emit pair keys (quantized_pair_keys); estimate the per-tile
     depth-prune cut (depth_prune_cutkeys); compact the mostly-dead slot
     array (the cut fused into the rowsort kernel, with pallas_compact);
-    one unstable global sort; CSR offsets by bisection.
+    one unstable global sort; CSR offsets by bisection; with head_cap (tail
+    mode), the post-sort head re-cut.
     Ties within a (tile, 20-bit depth) bucket order arbitrarily, as in the
     reference.
     """
@@ -318,7 +324,7 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
     tid_s = torch.where(key_s == DEAD, num_tiles, key_s >> QUANT_DEPTH_BITS)
     tile_ids = torch.arange(num_tiles + 1, dtype=torch.int32, device=dev)
     tile_start = searchsorted_i32(key_s, tile_ids << QUANT_DEPTH_BITS)
-    prune_underkeep = tile_pruned = None
+    prune_underkeep = tile_pruned = head_counts = None
     if prune_cut is not None:
         # The prune's statistical guarantee, verified: every tile that was
         # actually pruned must still hold >= the composite cap.
@@ -327,12 +333,26 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
         tile_pruned = prune_cut < t_max
         prune_underkeep = (tile_pruned & (counts < depth_prune_cap)).sum(
             dtype=torch.int32)
+        if head_cap:
+            # Post-sort re-cut (tail mode): the head keeps at most head_cap
+            # nearest pairs per tile. In an overfull tile the cut is one
+            # below the head_cap-th key, which pushes that key's whole tie
+            # block to the tail; every pair beyond the cut, kept or pruned,
+            # has key > prune_cut and belongs to the tail.
+            starts = tile_start[:-1]
+            last = starts + torch.clamp(counts, max=head_cap) - 1
+            kcut = key_s[torch.clamp(last, min=0).long()]
+            head_cut = torch.where(counts > head_cap, kcut - 1, kcut)
+            head_cut = torch.where(counts > 0, head_cut, t_max)
+            head_counts = searchsorted_i32(key_s, head_cut + 1) - starts
+            prune_cut = head_cut
+            tile_pruned = head_counts < counts
     return TileBinning(pair_splat=splat_s, pair_tile=tid_s,
                        tile_start=tile_start, overflowed=overflowed,
                        compact_dropped=compact_dropped,
                        prune_underkeep=prune_underkeep,
                        tile_pruned=tile_pruned, prune_cut=prune_cut,
-                       big_ids=big_ids)
+                       head_counts=head_counts, big_ids=big_ids)
 
 
 def depth_prune_cutkeys(key: torch.Tensor, num_tiles: int, cap: int,

@@ -13,6 +13,15 @@ from typing import Dict
 
 import torch
 
+from fourdgs_torch.splats.packed import morton_order, pad_packed_params
+
+# bench.py's camera for this scene (bench.py:148-150); width and height are
+# the caller's.
+CUBE_CAMERA = dict(position=(420.0, 300.0, 420.0),
+                   orientation=(-1.0, -0.7, -1.0), far=5000.0)
+# bench.py's dead-pad multiple for the converged scene (bench.py:139-145).
+CONVERGED_PAD = 16384
+
 
 def build_cube_scene(n: int, seed: int = 0,
                      device="cpu") -> Dict[str, torch.Tensor]:
@@ -41,3 +50,11 @@ def build_cube_scene(n: int, seed: int = 0,
         cr=f_r * 0.85 + 0.15, cg=f_g * 0.85 + 0.15,
         cb=(f_r * 0.85 + 0.15) * 0.5 + 0.3, ca=f_g * 0.4 + 0.6,
     )
+
+
+def converged_cube_scene(params: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """The converged path's scene: Morton-ordered and dead-padded to a
+    CONVERGED_PAD multiple, the one-time scene build bench.py does for the
+    banded tail."""
+    return pad_packed_params(morton_order(params), CONVERGED_PAD)

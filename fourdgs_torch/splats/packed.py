@@ -115,3 +115,49 @@ def slice4d(params: Dict[str, torch.Tensor], cov4, t: float,
     sort_mz = params["pz"] + c23 * dt
     return (mx, my, mz, (s00, s01, s02, s11, s12, s22), opacity,
             (sort_mx, sort_my, sort_mz))
+
+
+def morton_order(params: Dict[str, torch.Tensor],
+                 bits: int = 10) -> Dict[str, torch.Tensor]:
+    """Reorder the parameter dict by the 3D Morton (Z-order) code of splat
+    position, a one-time scene-build step. Spatially adjacent splats become
+    adjacent in memory, which gives each chunk of the banded tail screen-tile
+    locality for any camera. Values are unchanged; only the order moves.
+    The sort is stable (ties keep their input order), as the reference's."""
+    def q(x):
+        lo = x.min()
+        span = torch.clamp(x.max() - lo, min=1e-12)
+        return torch.clamp((x - lo) / span * (1 << bits), 0,
+                           (1 << bits) - 1).to(torch.int64)
+
+    def spread(v):
+        # Interleave: two zero bits between each of the 10 bits (the
+        # reference's uint32 arithmetic, held in int64 and masked).
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+
+    code = (spread(q(params["px"])) | (spread(q(params["py"])) << 1)
+            | (spread(q(params["pz"])) << 2)) & 0xFFFFFFFF
+    order = torch.argsort(code, stable=True)
+    return {k: v[order] for k, v in params.items()}
+
+
+# Pad splats: unit quaternion, epsilon scales and lifetime, zero opacity.
+_PAD_FILL = dict(qw=1.0, sx=1e-6, sy=1e-6, sz=1e-6, lifetime=1e-6, fade=0.5,
+                 ca=0.0)
+
+
+def pad_packed_params(params: Dict[str, torch.Tensor],
+                      multiple: int = 2048) -> Dict[str, torch.Tensor]:
+    """Pad the parameter dict with dead splats (opacity 0) to a length
+    multiple, a one-time scene-build step that makes every per-splat array
+    of the frame already tail-chunk aligned."""
+    n = params["px"].shape[0]
+    pad = -(-n // multiple) * multiple - n
+    if pad == 0:
+        return params
+    return {k: torch.cat([v, v.new_full((pad,), _PAD_FILL.get(k, 0.0))])
+            for k, v in params.items()}

@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from fourdgs_torch.ops import composite_cuda, lookup_cuda, sort_cuda
+from fourdgs_torch.ops import (composite_cuda, lookup_cuda, pack_cuda,
+                               sort_cuda, tail_cuda)
 from fourdgs_torch.splats.packed import PARAM4D_FIELDS, params4d_from_numpy
 
 REPO = Path(__file__).resolve().parents[1]
 KERNELS = (composite_cuda.COMPOSITE, sort_cuda.ROWSORT,
-           lookup_cuda.SAMPLE_BLOCKS)
+           lookup_cuda.SAMPLE_BLOCKS, pack_cuda.PACK_RECORD_FIELDS,
+           pack_cuda.PACK_META_ROWS, tail_cuda.TAIL_PREPASS,
+           tail_cuda.TAIL_ACCUMULATE)
 
 
 def test_package_never_imports_jax():
@@ -53,6 +56,18 @@ def test_cpu_tensors_take_the_plain_versions():
     out = composite_cuda.composite_records(rec, counts, kx, kx, carry)
     composite_cuda.composite_records_at(rec[:1], counts[:1],
                                         torch.tensor([1]), kx, kx, out)
+    f = torch.ones(1000)
+    pack_cuda.pack_record_fields(*([f] * 10), torch.tensor(2.0),
+                                 torch.tensor(3.0), 1024)
+    i = torch.zeros(1000, dtype=torch.int32)
+    meta = tail_cuda.tail_meta(torch.ones(1000, dtype=torch.bool), i, i, i, i,
+                               i, 512)
+    cuts = torch.zeros(7, dtype=torch.int32)
+    band, rect, mask = tail_cuda.tail_prepass(meta, cuts, 512, 4)
+    tail_cuda.tail_accumulate(torch.zeros((10, 1024)), meta, band, rect,
+                              torch.zeros(4, dtype=torch.int32),
+                              torch.ones(8), 8, 2, 2, 512, 4, 1, 8,
+                              slot_mask=mask)
     for k in KERNELS:
         assert k.launches == 0, k.symbol
         assert k._fn is None, k.symbol             # nothing was built

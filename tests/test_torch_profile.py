@@ -1,0 +1,82 @@
+"""The stage profiler of the port (fourdgs_torch/tools/profile_frame.py):
+its attribution of device operations to `fourdgs::*` ranges on a synthetic
+trace, and one profiled render on the CPU (host ranges only)."""
+
+import pytest
+import torch
+
+from fourdgs_torch.tools import profile_frame as PF
+
+
+def _range(name, ts, dur):
+    return dict(ph="X", cat="user_annotation", name=name, ts=ts, dur=dur)
+
+
+def _launch(corr, ts):
+    return dict(ph="X", cat="cuda_runtime", name="cudaLaunchKernel", ts=ts,
+                dur=1.0, args=dict(correlation=corr))
+
+
+def _device(corr, ts, dur, cat="kernel"):
+    return dict(ph="X", cat=cat, name=f"k{corr}", ts=ts, dur=dur,
+                args=dict(correlation=corr))
+
+
+def test_attribute_trace_maps_launches_to_innermost_range():
+    events = [
+        # Two frames of 10 ms; stage a holds stage b.
+        _range(PF.FRAME, 0.0, 10_000.0), _range(PF.FRAME, 20_000.0, 10_000.0),
+        _range("fourdgs::a", 100.0, 5_000.0),
+        _range("fourdgs::b", 1_000.0, 1_000.0),
+        _range("fourdgs::a", 20_100.0, 3_000.0),
+        _range("other::x", 3_000.0, 100.0),       # not a fourdgs range
+        _launch(1, 200.0), _device(1, 300.0, 2_000.0),      # a
+        _launch(2, 1_500.0), _device(2, 1_000.0, 2_000.0),  # b, overlaps 1
+        _launch(3, 3_050.0), _device(3, 6_000.0, 500.0, "gpu_memset"),  # a
+        _launch(4, 8_000.0), _device(4, 8_100.0, 1_000.0),  # outside stages
+        _launch(5, 20_200.0), _device(5, 20_300.0, 4_000.0),  # a, frame 2
+        _launch(6, 40_000.0), _device(6, 40_000.0, 9_000.0),  # no frame
+        _device(7, 1_000.0, 50.0),                # launch not traced
+    ]
+    res = PF.attribute_trace(events)
+    assert res["frames"] == 2
+    assert res["frame_ms"] == pytest.approx(10.0)
+    st = res["stages"]
+    assert set(st) == {"fourdgs::a", "fourdgs::b", PF.OUTSIDE}
+    assert st["fourdgs::a"]["device_ms"] == pytest.approx((2.0 + 0.5 + 4.0) / 2)
+    assert st["fourdgs::a"]["ops"] == pytest.approx(1.5)
+    assert st["fourdgs::a"]["host_ms"] == pytest.approx((5.0 + 3.0) / 2)
+    assert st["fourdgs::b"]["device_ms"] == pytest.approx(1.0)
+    assert st[PF.OUTSIDE]["device_ms"] == pytest.approx(0.5)
+    assert res["ops"] == pytest.approx(2.5)
+    # Frame 1: union of [300, 2300], [1000, 3000], [6000, 6500], [8100,
+    # 9100] = 4.2 ms; frame 2: 4 ms.
+    assert res["busy_ms"] == pytest.approx((4.2 + 4.0) / 2)
+    assert res["idle_traced"] == pytest.approx(1.0 - 4.1 / 10.0)
+    assert list(st)[0] == "fourdgs::a"       # sorted by device time
+
+
+def test_attribute_trace_needs_a_frame_range():
+    with pytest.raises(ValueError, match="no fourdgs::frame"):
+        PF.attribute_trace([_range("fourdgs::a", 0.0, 1.0)])
+
+
+def test_profile_path_on_the_cpu_finds_every_stage():
+    from fourdgs_torch.core.camera import Camera
+    from fourdgs_torch.render.autoconfig import auto_render_config
+    from fourdgs_torch.scenes.cube import (CUBE_CAMERA, build_cube_scene,
+                                           converged_cube_scene)
+    n, w, h = 2048, 256, 128
+    params = converged_cube_scene(build_cube_scene(n, seed=3))
+    cam = Camera.create(**CUBE_CAMERA, width=w, height=h)
+    res = PF.profile_path(params, cam, auto_render_config(n, w, h),
+                          warmup=0, timed=1, profiled=1)
+    assert res["frames"] == 1 and res["ops"] == 0 and res["busy_ms"] == 0.0
+    want = {"fourdgs::project", "fourdgs::bin_sort", "fourdgs::emit",
+            "fourdgs::composite", "fourdgs::pass1_kernel", "fourdgs::tail",
+            "fourdgs::tail_prepass", "fourdgs::tail_main",
+            "fourdgs::tail_combine"}
+    assert want <= set(res["stages"])
+    assert all(st["host_ms"] > 0 for st in res["stages"].values())
+    assert res["median_ms"] > 0 and len(res["frames_ms"]) == 1
+    assert torch.isfinite(torch.tensor(res["frame_ms"]))
