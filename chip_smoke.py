@@ -35,13 +35,29 @@ on the same card at each of those call sites. Phases:
       K3 twice, K4, K5, K6 twice, K7 twice), timed frames, aux counters
       (overflowed, compact_dropped and resid_transmittance 0; the prune's
       under-keep is informational, as pruned pairs go to the tail), mean
-      rgb, peak memory.
+      rgb, peak memory;
+  training (the gradient of a loss of the frame with respect to the packed
+  params, at t = 0.37 so that every field's gradient is nonzero):
+  (j) the backward kernels against their plain versions at the inputs one
+      10M converged grad step gives them (K8 once, K9 for the main and the
+      big-tier stream), and K8's deepening-pass form (`sel`) at a 20K
+      non-converged grad step;
+  (k) the 20K-splat frames, both modes, card gradients against CPU
+      gradients: from one binning (1e-4 of each field's max |g|) and from
+      params (the tie-order tolerance of tests/test_torch_train.py); then
+      four Adam steps on the card toward a target from another seed, and
+      the loss falls;
+  (l) the full 10M converged grad step, mean(img[..., :3]^2) as the
+      reference's bench_full.py takes it: launch counts of one step (K8
+      once, K9 twice, and the forward's), finite and nonzero gradients for
+      every field, the forward and forward+backward medians, their ratio,
+      and peak memory.
 
 Any failed check raises, so the script exits non-zero. It prints a JSON
-line with one entry per kernel and path (launches per frame of that path;
-ms, plain_ms summed over the path's call sites, one launch each, and
-max_abs_err the largest over them; `calls` gives each site), then as its
-last line
+line with one entry per kernel and path (launches per frame or grad step of
+that path; ms, plain_ms summed over the path's call sites, one launch each,
+and max_abs_err the largest over them; `calls` gives each site) and the grad
+step's numbers of (l) under "grad_step", then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -73,12 +89,22 @@ KERNEL_INFO = {
                         "fourdgs/ops/tail_pallas.py:178"),
     "K7 tail_accumulate": ("fourdgs_torch/ops/csrc/tail.cu",
                            "fourdgs/ops/tail_pallas.py:425"),
+    "K8 composite_bwd": ("fourdgs_torch/ops/csrc/composite_bwd.cu",
+                         "fourdgs/ops/composite_pallas.py:363"),
+    "K9 tail_accumulate_bwd": ("fourdgs_torch/ops/csrc/tail_bwd.cu",
+                               "fourdgs/ops/tail_pallas.py:904"),
 }
 # K7 against its plain version: the kernel adds each sample's planes with
 # atomics in no fixed order, so sums of up to thousands of terms differ in
 # rounding; every per-sample operation rounds alike (both are float32, and
 # the kernel is built with -fmad=false).
 K7_RTOL, K7_ATOL = 1e-4, 1e-5
+# K8 and K9 against their plain versions, relative to each field's max |d|:
+# each field's cotangent is a sum over a tile's pixels (K8) or a pair's
+# samples and slots (K9), taken in another order by the kernel.
+BWD_TOL = 1e-4
+T_GRAD = 0.37            # at t = pt the temporal fields get no gradient
+TIMED_STEPS = 5
 
 
 class SmokeFailure(AssertionError):
@@ -115,11 +141,18 @@ def _clone(a):
     return a
 
 
-def capture_kernel_inputs(params, camera, cfg, targets):
+def grad_loss(img):
+    """The grad step's loss, as the reference's bench_full.py takes it."""
+    return (img[..., :3] ** 2).mean()
+
+
+def capture_kernel_inputs(params, camera, cfg, targets, t=0.0, grad=False):
     """Render one frame with the kernel wrappers `targets` ((module, name)
     pairs) wrapped so that each records the cloned arguments of every call:
-    the inputs the path really gives each kernel. Returns {"module.name":
-    [(args, kwargs), ...]} (the calling module's last name) in call order."""
+    the inputs the path really gives each kernel. With `grad`, the frame is
+    a grad step: grad_loss of the frame at `t`, backward to the params.
+    Returns {"module.name": [(args, kwargs), ...]} (the calling module's
+    last name) in call order."""
     from fourdgs_torch.render import pipeline as TP
 
     seen = {}
@@ -139,7 +172,13 @@ def capture_kernel_inputs(params, camera, cfg, targets):
     for owner, name in targets:
         wrap(owner, name)
     try:
-        TP.render_params4d_packed(params, camera, 0.0, cfg=cfg)
+        if grad:
+            p = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in params.items()}
+            grad_loss(TP.render_params4d_packed(p, camera, t, cfg=cfg)
+                      ).backward()
+        else:
+            TP.render_params4d_packed(params, camera, t, cfg=cfg)
     finally:
         for (owner, name), fn in originals.items():
             setattr(owner, name, fn)
@@ -613,6 +652,305 @@ def phase_full_frame(tag, params, camera, cfg, kernels, expect, timed):
     return launches, aux
 
 
+def _field_err(got, want, dim):
+    """Largest |d| over each field (index `dim`) relative to that field's
+    max |want|, and the largest |d| overall."""
+    import torch
+    got, want = got.double(), want.double()
+    dims = [d for d in range(want.dim()) if d != dim]
+    scale = want.abs().amax(dim=dims).clamp(min=1e-30)
+    err = (got - want).abs().amax(dim=dims) / scale
+    return float(err.max()), float((got - want).abs().max())
+
+
+def phase_backward_kernels(tag, calls_c, calls_t):
+    """K8 at each composite backward call (pass 1 and, for the
+    non-converged path, the deepening passes with `sel`) and K9 at each
+    tail backward call, each against its plain version on the card."""
+    import torch
+    from fourdgs_torch.ops import composite_cuda as C
+    from fourdgs_torch.ops import tail_cuda as TL
+
+    results, lines = {}, []
+    sites = []
+    for (records, counts, sel, kx, ky, carry, fout, g), _ in calls_c:
+        def k8():
+            return C.composite_records_bwd(records, counts, sel, kx, ky,
+                                           carry, fout, g)
+
+        def plain():
+            if sel is None:
+                return C.composite_bwd_plain(records, counts, kx, ky, carry,
+                                             fout, g)
+            s = sel.long()
+            return C.composite_bwd_plain(records, counts, kx[s], ky[s],
+                                         carry, fout, g[s])
+        got, want = k8(), plain()
+        torch.cuda.synchronize()
+        rel, err = _field_err(got[:, :C.N_FIELDS], want[:, :C.N_FIELDS], 1)
+        check(rel <= BWD_TOL and bool((got[:, C.N_FIELDS:] == 0).all()),
+              f"{tag} K8 ({'sel' if sel is not None else 'pass 1'}): "
+              f"{rel:.3e} of a field's max |d| > {BWD_TOL:g}")
+        ms = cuda_ms(k8, reps=10)
+        plain_ms = cuda_ms(plain, reps=2, warmup=1)
+        site = (f"{'deepening pass' if sel is not None else 'pass 1'}, "
+                f"T={records.shape[0]}, M={records.shape[2]}, "
+                f"P={kx.shape[2]}, {int(counts.sum()):,} records")
+        sites.append(dict(site=site, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms))
+        lines.append(f"{site}: {rel:.3e} of max |d|; kernel {ms:.3f} ms, "
+                     f"plain {plain_ms:.3f} ms")
+    results["K8 composite_bwd"] = _sites(sites)
+    print(f"{tag} K8 composite_bwd (tolerance {BWD_TOL:g} of each field's "
+          f"max |d|): " + "; ".join(lines))
+    if not calls_t:
+        return results
+    sites, lines = [], []
+    for args, kw in calls_t:
+        # The backward meets the streams in reverse order: big tier first.
+        label = "big" if kw["budget_lo"] > 0 else "main"
+        fields, meta, band, cut, params_row, d_acc, mask = args
+        plain_kw = {k: kw[k] for k in ("k_bands", "nx", "ny", "chunk",
+                                       "budget", "s_cy", "s_cx", "budget_lo",
+                                       "exact_clip")}
+
+        def k9():
+            return TL.tail_accumulate_bwd(*args, **kw)
+
+        def plain():
+            return TL.tail_accumulate_bwd_plain(fields, meta, band, cut,
+                                                params_row, d_acc, **plain_kw)
+        got, want = k9(), plain()
+        torch.cuda.synchronize()
+        check(label == "big" or float(want.abs().max()) > 0,
+              f"{tag} K9 {label}: no cotangent")
+        rel, err = _field_err(got, want, 0) if float(want.abs().max()) > 0 \
+            else (float(got.abs().max()), float(got.abs().max()))
+        check(rel <= BWD_TOL, f"{tag} K9 {label}: {rel:.3e} of a field's max "
+              f"|d| > {BWD_TOL:g}")
+        ms = cuda_ms(k9, reps=10)
+        plain_ms = cuda_ms(plain, reps=2, warmup=1)
+        site = (f"{label}: {meta.shape[1]:,} splats, chunk "
+                f"{plain_kw['chunk']}, budget ({plain_kw['budget_lo']}, "
+                f"{plain_kw['budget']}]")
+        sites.append(dict(site=site, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms))
+        lines.append(f"{site}: {rel:.3e} of max |d|; kernel {ms:.3f} ms, "
+                     f"plain {plain_ms:.3f} ms")
+    results["K9 tail_accumulate_bwd"] = _sites(sites)
+    print(f"{tag} K9 tail_accumulate_bwd (tolerance {BWD_TOL:g} of each "
+          f"field's max |d|): " + "; ".join(lines))
+    return results
+
+
+def _grad_scales(grads):
+    """Per field: max |g|, floored at 1e-4 of the largest over all fields."""
+    top = max(float(g.abs().max()) for g in grads.values())
+    check(top > 0.0, "all gradients are zero")
+    return {k: max(float(g.abs().max()), 1e-4 * top) for k, g in grads.items()}
+
+
+def phase_small_grads(dev, converged, kernels):
+    """(k): card gradients against CPU gradients of the 20K-splat frame,
+    from one binning and from params, then four Adam steps on the card.
+    For the non-converged path it also returns the K8 inputs and launch
+    counts of one grad step (phase j's `sel` form)."""
+    import dataclasses
+
+    import torch
+    from fourdgs_torch.core.camera import Camera
+    from fourdgs_torch.ops import composite_cuda as C
+    from fourdgs_torch.render import pipeline as TP
+    from fourdgs_torch.render import tiles as TT
+    from fourdgs_torch.render.autoconfig import auto_render_config
+    from fourdgs_torch.render.project import Projected
+    from fourdgs_torch.scenes.cube import (CUBE_CAMERA, build_cube_scene,
+                                           converged_cube_scene)
+    from fourdgs_torch.train import loss as LOSS
+
+    tag = f"(k) {'converged' if converged else 'non-converged'}"
+    fields = ("mx", "my", "v0x", "v0y", "l0", "l1", "r", "g", "b", "a",
+              "opacity")
+
+    def scene(seed):
+        p = build_cube_scene(N_SMALL, seed=seed, device=dev)
+        return converged_cube_scene(p) if converged else p
+    params = scene(1)
+    cfg = auto_render_config(params["px"].shape[0], W_SMALL, H_SMALL,
+                             converged=converged)
+    params_cpu = {k: v.cpu() for k, v in params.items()}
+    cam = Camera.create(**CUBE_CAMERA, width=W_SMALL, height=H_SMALL,
+                        device=dev)
+    cam_cpu = Camera.create(**CUBE_CAMERA, width=W_SMALL, height=H_SMALL)
+    wts_cpu = torch.rand((H_SMALL, W_SMALL, 3),
+                         generator=torch.Generator().manual_seed(3)) * 2 - 1
+    pm = cam_cpu.proj_matrix()
+
+    # One binning (the card's, of the CPU projection) on both devices.
+    proj_cpu = TP.project_params4d(params_cpu, cam_cpu, T_GRAD)
+    b_gpu = TT.bin_splats(
+        proj_cpu.to(dev), pm[0, 0].to(dev), pm[1, 1].to(dev), W_SMALL,
+        H_SMALL, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+        max_tiles_per_splat=cfg.max_tiles_per_splat,
+        compact_keep_cols=cfg.sort_compact_keep_cols,
+        big_splat_budget=cfg.big_splat_budget,
+        big_splat_keep_cols=cfg.big_splat_keep_cols, pallas_compact=True,
+        compact_row_len=cfg.compact_row_len,
+        depth_prune_cap=cfg.depth_prune_cap,
+        depth_prune_safety=cfg.depth_prune_safety,
+        head_cap=cfg.max_splats_per_tile if converged else 0)
+
+    def binning_grads(device, binning):
+        proj = Projected(**{
+            f.name: getattr(proj_cpu, f.name).detach().to(device).clone()
+            .requires_grad_(f.name in fields)
+            for f in dataclasses.fields(proj_cpu)})
+        px, py, _ = TT.tile_pixel_ndc(W_SMALL, H_SMALL, cfg.tile_h,
+                                      cfg.tile_w, device=device)
+        tiles, _ = TP._composite_pallas_progressive(
+            proj, binning, px, py, pm[0, 0].to(device), pm[1, 1].to(device),
+            torch.tensor(cfg.background, device=device), cfg,
+            image_size=(W_SMALL, H_SMALL))
+        img = TT.assemble_image(tiles, W_SMALL, H_SMALL, cfg.tile_h,
+                                cfg.tile_w)
+        (img[..., :3] * wts_cpu.to(device)).sum().backward()
+        return {f: getattr(proj, f).grad.cpu() for f in fields}
+    b_cpu = TT.TileBinning(**{
+        f.name: None if getattr(b_gpu, f.name) is None
+        else getattr(b_gpu, f.name).cpu() for f in dataclasses.fields(b_gpu)})
+    g_card, g_cpu = binning_grads(dev, b_gpu), binning_grads("cpu", b_cpu)
+    one = max(float((g_card[k] - g_cpu[k]).abs().max()) / s
+              for k, s in _grad_scales(g_cpu).items())
+    check(one <= 1e-4, f"{tag} grads of one binning: {one:.3e} of a field's "
+          f"max |g| > 1e-4")
+
+    # The whole frame from params, counting the card's launches of the step.
+    def param_grads(p, camera):
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+        img = TP.render_params4d_packed(p, camera, T_GRAD, cfg=cfg)
+        (img[..., :3] * wts_cpu.to(img.device)).sum().backward()
+        return {k: v.grad.cpu() for k, v in p.items()}
+    for k in kernels.values():
+        k.launches = 0
+    captured = None
+    if converged:
+        gp_card = param_grads(params, cam)
+    else:
+        captured = {}
+        orig = C.composite_records_bwd
+
+        def recorder(*args):
+            captured.setdefault("c", []).append(
+                (_clone(list(args)), {}))
+            return orig(*args)
+        C.composite_records_bwd = recorder
+        try:
+            gp_card = param_grads(params, cam)
+        finally:
+            C.composite_records_bwd = orig
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    check(launches["K8 composite_bwd"] > 0, f"{tag}: K8 never launched")
+    gp_cpu = param_grads(params_cpu, cam_cpu)
+    worst_mean, worst_share = 0.0, 0.0
+    for k, s in _grad_scales(gp_cpu).items():
+        err = (gp_card[k] - gp_cpu[k]).abs().double() / s
+        worst_mean = max(worst_mean, float(err.mean()))
+        worst_share = max(worst_share, float((err > 1e-3).double().mean()))
+        check(bool(torch.isfinite(gp_card[k]).all()),
+              f"{tag} gradient of {k} not finite")
+    check(worst_mean < 3e-4 and worst_share < 0.02,
+          f"{tag} grads from params: mean {worst_mean:.3e}, share > 1e-3 "
+          f"{worst_share:.4f} (tie tolerance: 3e-4, 0.02)")
+
+    # Four Adam steps on the card toward a target from another seed.
+    with torch.no_grad():
+        target = TP.render_params4d_packed(scene(2), cam, 0.0, cfg=cfg)
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    opt = torch.optim.Adam(p.values(), lr=5e-2)
+    losses = []
+    for _ in range(4):
+        opt.zero_grad()
+        loss = LOSS.l2(TP.render_params4d_packed(p, cam, 0.0, cfg=cfg),
+                       target)
+        loss.backward()
+        check(all(bool(torch.isfinite(v.grad).all()) for v in p.values()),
+              f"{tag} Adam: a gradient is not finite")
+        opt.step()
+        losses.append(loss.item())
+    check(losses[-1] < losses[0], f"{tag} Adam: the loss did not fall: "
+          f"{losses}")
+    print(f"{tag} {params['px'].shape[0]:,} splats {W_SMALL}x{H_SMALL} at "
+          f"t={T_GRAD}: grads of one binning within {one:.3e} of each "
+          f"field's max |g|; from params mean {worst_mean:.3e}, share > 1e-3 "
+          f"{worst_share:.5f} (tied pairs); K8 launches per step "
+          f"{launches['K8 composite_bwd']}; Adam lr 5e-2 losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}")
+    return captured, launches
+
+
+def phase_grad_step(params, camera, cfg, kernels, expect, timed):
+    """(l): one 10M converged grad step with every launch count set to 0
+    just before and read just after, then `timed` forward and forward +
+    backward steps in turns. Returns (launches, step numbers)."""
+    import torch
+    from fourdgs_torch.render import pipeline as TP
+    from fourdgs_torch.splats.packed import PARAM4D_FIELDS
+
+    dev = params["px"].device
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+
+    def forward():
+        return grad_loss(TP.render_params4d_packed(p, camera, T_GRAD,
+                                                   cfg=cfg))
+
+    def step():
+        for v in p.values():
+            v.grad = None
+        loss = forward()
+        loss.backward()
+        return loss
+    for k in kernels.values():
+        k.launches = 0
+    loss = step()
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    for name, n in expect.items():
+        check(launches[name] == n, f"(l) {name}: {launches[name]} launches "
+              f"per grad step, want {n}")
+    check(bool(torch.isfinite(loss)), "(l) loss not finite")
+    gmax = {}
+    for k in PARAM4D_FIELDS:
+        g = p[k].grad
+        check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+              f"(l) gradient of {k} not finite or zero")
+        gmax[k] = float(g.abs().max())
+    torch.cuda.reset_peak_memory_stats(dev)
+    fwd, both = [], []
+    for _ in range(timed):
+        for fn, out in ((forward, fwd), (step, both)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+            del loss
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    f_med, b_med = statistics.median(fwd), statistics.median(both)
+    ratio = (b_med - f_med) / f_med
+    print(f"(l) grad step {params['px'].shape[0]:,} splats {W_FULL}x{H_FULL} "
+          f"converged, mean(img[..., :3]^2) at t={T_GRAD}: forward median "
+          f"{f_med:.2f} ms [{', '.join(f'{t:.2f}' for t in fwd)}], forward + "
+          f"backward median {b_med:.2f} ms "
+          f"[{', '.join(f'{t:.2f}' for t in both)}], backward / forward "
+          f"{ratio:.3f}; launches per step {json.dumps(launches)}; every "
+          f"field's gradient finite and nonzero (max |g| "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in gmax.items()})}); "
+          f"peak memory {peak:.2f} GiB")
+    return launches, dict(fwd_ms=f_med, fwd_bwd_ms=b_med, bwd_over_fwd=ratio,
+                          peak_gib=peak)
+
+
 def build_kernels(kernels):
     """Build every kernel: one nvcc per source file, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -649,7 +987,9 @@ def main() -> int:
                "K4 pack_record_fields": pack_cuda.PACK_RECORD_FIELDS,
                "K5 pack_meta_rows": pack_cuda.PACK_META_ROWS,
                "K6 tail_prepass": tail_cuda.TAIL_PREPASS,
-               "K7 tail_accumulate": tail_cuda.TAIL_ACCUMULATE}
+               "K7 tail_accumulate": tail_cuda.TAIL_ACCUMULATE,
+               "K8 composite_bwd": composite_cuda.COMPOSITE_BWD,
+               "K9 tail_accumulate_bwd": tail_cuda.TAIL_ACCUMULATE_BWD}
 
     # (a) environment and builds.
     kind = torch.cuda.get_device_name(0)
@@ -697,7 +1037,8 @@ def main() -> int:
         {"K1 composite": None, "K2 rowsort_compact": 1,
          "K3 sample_blocks": 1, "K4 pack_record_fields": 0,
          "K5 pack_meta_rows": 0, "K6 tail_prepass": 0,
-         "K7 tail_accumulate": 0}, TIMED_FRAMES)[0]}
+         "K7 tail_accumulate": 0, "K8 composite_bwd": 0,
+         "K9 tail_accumulate_bwd": 0}, TIMED_FRAMES)[0]}
 
     # Converged path.
     cfg = auto_render_config(N_FULL, W_FULL, H_FULL)
@@ -736,15 +1077,49 @@ def main() -> int:
         "(i)", params, camera, cfg, kernels,
         {"K1 composite": 1, "K2 rowsort_compact": 1, "K3 sample_blocks": 2,
          "K4 pack_record_fields": 1, "K5 pack_meta_rows": 1,
-         "K6 tail_prepass": 2, "K7 tail_accumulate": 2},
+         "K6 tail_prepass": 2, "K7 tail_accumulate": 2,
+         "K8 composite_bwd": 0, "K9 tail_accumulate_bwd": 0},
         TIMED_FRAMES_CONVERGED)[0]
+    torch.cuda.empty_cache()
+
+    # Training.
+    # (j) K8 and K9 at the inputs of one 10M converged grad step.
+    t0 = time.time()
+    captured = capture_kernel_inputs(
+        params, camera, cfg, [(composite_cuda, "composite_records_bwd"),
+                              (tail_cuda, "tail_accumulate_bwd")],
+        t=T_GRAD, grad=True)
+    torch.cuda.synchronize()
+    print(f"    converged grad step capture {time.time() - t0:.1f} s")
+    step = "converged grad step"
+    results[step] = phase_backward_kernels(
+        "(j)", captured["composite_cuda.composite_records_bwd"],
+        captured["tail_cuda.tail_accumulate_bwd"])
+    del captured
+    torch.cuda.empty_cache()
+    # (k) the 20K frames, card against CPU, and Adam; (j) K8's `sel` form
+    # at the 20K non-converged grad step.
+    small = f"non-converged grad step ({N_SMALL // 1000}K)"
+    captured, launches[small] = phase_small_grads(dev, False, kernels)
+    results[small] = phase_backward_kernels("(j)", captured["c"], [])
+    del captured
+    phase_small_grads(dev, True, kernels)
+    torch.cuda.empty_cache()
+    # (l) the full converged grad step.
+    launches[step], grad_step = phase_grad_step(
+        params, camera, cfg, kernels,
+        {"K1 composite": 1, "K2 rowsort_compact": 1, "K3 sample_blocks": 2,
+         "K4 pack_record_fields": 1, "K5 pack_meta_rows": 1,
+         "K6 tail_prepass": 2, "K7 tail_accumulate": 2,
+         "K8 composite_bwd": 1, "K9 tail_accumulate_bwd": 2}, TIMED_STEPS)
 
     print(json.dumps({"kernels": [
         dict(name=f"{name} [{path}]", path=path, route="cuda",
              source=KERNEL_INFO[name][0], replaces=KERNEL_INFO[name][1],
              launches=launches[path][name], **res)
         for path, by_kernel in results.items()
-        for name, res in sorted(by_kernel.items())]}))
+        for name, res in sorted(by_kernel.items())],
+        "grad_step": grad_step}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

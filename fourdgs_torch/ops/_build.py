@@ -10,7 +10,8 @@ The library is built at first use into `ops/_build/` (listed in
 `.gitignore`), named by a hash of its source and flags so an edited source is
 never served a stale library, and loaded with `ctypes`. Pointers and the
 stream travel as `c_void_p`; every entry returns `cudaGetLastError()` after
-its launch and the launcher raises when it is not 0.
+its launch and the launcher raises when it is not 0. The launcher takes
+tensors and passes their data pointers.
 
 Nothing here runs at import: a module holding a `CudaKernel` imports on a
 machine without `nvcc` or a card.
@@ -25,6 +26,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -99,7 +102,14 @@ class CudaKernel:
         return self._fn
 
     def __call__(self, *args, stream: int):
-        err = self.build()(*args, stream)
+        """Launch on `stream` with the entry's arguments in order: a tensor
+        travels as its data pointer and None as a null pointer. The tensors
+        (often temporary copies made by the caller) stay referenced until
+        the launch is queued; a pointer taken from a temporary that is freed
+        before the launch can alias the next temporary's block."""
+        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        err = self.build()(*ptrs, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{err}")

@@ -1,14 +1,20 @@
 """Per-tile ordered alpha compositing over packed splat records (port of
 fourdgs/ops/composite_pallas.py: `record_fields` (with `pad_to`, through the
 pack kernel K4), `pack_records` without pack8, `identity_carry`,
-`composite_records`, `composite_records_at`).
+`composite_records`, `composite_records_at`, and their custom VJPs).
 
-Kernel K1 (`csrc/composite.cu`) plus its plain PyTorch version. A CPU tensor
-runs the plain version; a CUDA tensor launches the kernel.
+Kernels K1 (`csrc/composite.cu`, the forward) and K8
+(`csrc/composite_bwd.cu`, the backward), each with its plain PyTorch
+version. A CPU tensor runs the plain versions; a CUDA tensor launches the
+kernels. `composite_records` and `composite_records_at` are autograd
+Functions: they differentiate the records and the carry, as the reference's
+`jax.custom_vjp`s do.
 
 Layouts are the reference's: records (T, F=16, M) with the 10 field rows
 first; pixel coordinates kx, ky (T, 1, P) in k units; carry and output
 (T, 8, P) with rows r, g, b, a (sum alpha^2 T), transmittance, 0, 0, 0.
+The plain versions also take float64 CPU tensors (for gradcheck); the
+kernels take float32 only.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.profiler import record_function
 
 from fourdgs_torch.ops import pack_cuda
 from fourdgs_torch.ops._build import CudaKernel
@@ -28,13 +35,19 @@ _C_IL0, _C_IL1 = 4, 5
 _C_R, _C_G, _C_B, _C_AEFF = 6, 7, 8, 9
 
 ALPHA_MAX = 1.0 - 1e-6
+# Tiles per batch of the plain backward: bounds its (tiles, 128, P)
+# temporaries on the card at the 10M-splat frame.
+PLAIN_BATCH_TILES = 64
 
+# Every multiply and add rounds on its own, as in the plain version: a
+# contracted multiply-add can flip the coverage tests at their edges.
+_FLAGS = ("-fmad=false",)
 COMPOSITE = CudaKernel(
     "composite.cu", "fourdgs_composite",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4,
-    # Every multiply and add rounds on its own, as in the plain version: a
-    # contracted multiply-add can flip the coverage tests at their edges.
-    extra_flags=("-fmad=false",))
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4, extra_flags=_FLAGS)
+COMPOSITE_BWD = CudaKernel(
+    "composite_bwd.cu", "fourdgs_composite_bwd",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4, extra_flags=_FLAGS)
 
 
 def record_fields(proj, p00, p11, pad_to: int | None = None) -> torch.Tensor:
@@ -83,13 +96,36 @@ def identity_carry(t_tiles: int, p: int, device="cpu",
     return c
 
 
+def _chunk_alpha(rec, kx, ky):
+    """Coverage and alpha of one chunk of records rec (A, F, C) at the
+    pixels kx, ky (A, 1, P): (dx, dy, e0, e1, n0, n1, w, cover, aw, alpha),
+    each (A, C, P), in the kernels' order of operations."""
+    def field(f):
+        return rec[:, f, :, None]                          # (A, C, 1)
+    dx = kx - field(_C_SX)
+    dy = ky - field(_C_SY)
+    v0x, v0y = field(_C_V0X), field(_C_V0Y)
+    e0 = v0x * dx + v0y * dy
+    e1 = v0y * dx - v0x * dy
+    n0 = e0 * field(_C_IL0)
+    n1 = e1 * field(_C_IL1)
+    q = 64.0 * (n0 * n0 + n1 * n1)
+    w = torch.exp(-0.5 * q)
+    cover = (torch.abs(n0) <= 0.5) & (torch.abs(n1) <= 0.5) & (w >= 1e-4)
+    aw = field(_C_AEFF) * w
+    alpha = torch.clamp(torch.where(cover, aw, 0.0), max=ALPHA_MAX)
+    return dx, dy, e0, e1, n0, n1, w, cover, aw, alpha
+
+
 def composite_plain(records, counts, kx, ky, carry) -> torch.Tensor:
     """The kernel's function on tile-aligned inputs: records (T, F, M),
     counts (T,), kx/ky (T, 1, P), carry (T, 8, P) -> new (T, 8, P).
 
     Chunk c of tile t runs only if c < ceil(counts[t] / 128) and the tile's
     max transmittance is above 1e-6 (the tile-wide early exit); within a
-    chunk the exclusive transmittance is a sequential product."""
+    chunk the exclusive transmittance is a sequential product. Not
+    autograd-safe (it updates its accumulators in place); composite_records
+    differentiates it."""
     t_tiles, _, m = records.shape
     acc = carry[:, 0:5].clone()                      # (T, 5, P)
     n_chunks = (counts.to(torch.int64) + CHUNK - 1) // CHUNK
@@ -99,34 +135,105 @@ def composite_plain(records, counts, kx, ky, carry) -> torch.Tensor:
         if idx.numel() == 0:
             break       # T only falls, so no tile reopens in later chunks
         rec = records[idx, :, c * CHUNK:(c + 1) * CHUNK]   # (A, F, C)
-
-        def field(f):
-            return rec[:, f, :, None]                      # (A, C, 1)
-
-        dx = kx[idx] - field(_C_SX)                        # (A, C, P)
-        dy = ky[idx] - field(_C_SY)
-        v0x, v0y = field(_C_V0X), field(_C_V0Y)
-        n0 = (v0x * dx + v0y * dy) * field(_C_IL0)
-        n1 = (v0y * dx - v0x * dy) * field(_C_IL1)
-        q = 64.0 * (n0 * n0 + n1 * n1)
-        w = torch.exp(-0.5 * q)
-        cover = (torch.abs(n0) <= 0.5) & (torch.abs(n1) <= 0.5) & (w >= 1e-4)
-        alpha = torch.where(cover, field(_C_AEFF) * w, 0.0)
-        alpha = torch.clamp(alpha, max=ALPHA_MAX)
+        alpha = _chunk_alpha(rec, kx[idx], ky[idx])[-1]    # (A, C, P)
         cp = torch.cumprod(1.0 - alpha, dim=1)
         excl = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
         a = acc[idx]
         trans = a[:, 4:5]                                  # (A, 1, P)
         wgt = alpha * (trans * excl)
-        a[:, 0] += (wgt * field(_C_R)).sum(dim=1)
-        a[:, 1] += (wgt * field(_C_G)).sum(dim=1)
-        a[:, 2] += (wgt * field(_C_B)).sum(dim=1)
+        a[:, 0] += (wgt * rec[:, _C_R, :, None]).sum(dim=1)
+        a[:, 1] += (wgt * rec[:, _C_G, :, None]).sum(dim=1)
+        a[:, 2] += (wgt * rec[:, _C_B, :, None]).sum(dim=1)
         a[:, 3] += (alpha * wgt).sum(dim=1)
         a[:, 4] = trans[:, 0] * cp[:, -1]
         acc[idx] = a
     out = torch.zeros_like(carry)
     out[:, 0:5] = acc
     return out
+
+
+def _composite_bwd_tiles(records, counts, kx, ky, carry, fwd_out, g):
+    """composite_bwd_plain on one batch of tiles."""
+    m = records.shape[2]
+    d_rec = torch.zeros_like(records)
+    gr, gg, gb, ga, gt = (g[:, i:i + 1] for i in range(5))   # (T, 1, P)
+    tot = fwd_out[:, 0:4]
+    gt_tfin = gt * fwd_out[:, 4:5]
+    pref = carry[:, 0:4].clone()                             # (T, 4, P)
+    trans = carry[:, 4:5].clone()                            # (T, 1, P)
+    n_chunks = (counts.to(torch.int64) + CHUNK - 1) // CHUNK
+    for c in range(m // CHUNK):
+        go = (c < n_chunks) & (trans.amax(dim=(1, 2)) > 1e-6)
+        idx = go.nonzero().squeeze(1)
+        if idx.numel() == 0:
+            break
+        cols = slice(c * CHUNK, (c + 1) * CHUNK)
+        rec = records[idx, :, cols]                          # (A, F, C)
+        dx, dy, e0, e1, n0, n1, w, cover, aw, alpha = _chunk_alpha(
+            rec, kx[idx], ky[idx])
+        one_m = 1.0 - alpha
+        cp = torch.cumprod(one_m, dim=1)
+        excl = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
+        tr = trans[idx]
+        t_i = tr * excl                                      # (A, C, P)
+        wgt = alpha * t_i
+        cr, cg, cb = (rec[:, f, :, None] for f in (_C_R, _C_G, _C_B))
+        incl = pref[idx][:, :, None] + torch.cumsum(
+            torch.stack([wgt * cr, wgt * cg, wgt * cb, alpha * wgt], dim=1),
+            dim=2)                                           # (A, 4, C, P)
+        gi = [x[idx] for x in (gr, gg, gb, ga)]
+        suffix = tot[idx][:, :, None] - incl
+        num = (gi[0] * suffix[:, 0] + gi[1] * suffix[:, 1]
+               + gi[2] * suffix[:, 2] + gi[3] * suffix[:, 3] + gt_tfin[idx])
+        d_alpha = ((gi[0] * cr + gi[1] * cg + gi[2] * cb) * t_i
+                   + gi[3] * 2.0 * alpha * t_i - num / one_m)
+        d_aw = torch.where(cover & (aw < ALPHA_MAX), d_alpha, 0.0)
+        v0x, v0y, il0, il1, a_eff = (rec[:, f, :, None] for f in (
+            _C_V0X, _C_V0Y, _C_IL0, _C_IL1, _C_AEFF))
+        d_q = d_aw * a_eff * w * (-0.5)
+        dn0 = 128.0 * n0 * d_q
+        dn1 = 128.0 * n1 * d_q
+        d_rec[idx, :N_FIELDS, cols] = torch.stack([
+            -dn0 * v0x * il0 - dn1 * v0y * il1,
+            -dn0 * v0y * il0 + dn1 * v0x * il1,
+            dn0 * dx * il0 - dn1 * dy * il1,
+            dn0 * dy * il0 + dn1 * dx * il1,
+            dn0 * e0, dn1 * e1,
+            gi[0] * wgt, gi[1] * wgt, gi[2] * wgt,
+            d_aw * w], dim=1).sum(dim=3)
+        pref[idx] = incl[:, :, -1]
+        trans[idx] = tr * cp[:, -1:]
+    return d_rec
+
+
+def composite_bwd_plain(records, counts, kx, ky, carry, fwd_out, g):
+    """The backward kernel's function (the reference's
+    `_composite_bwd_kernel`): d_records (T, 16, M) of the forward
+    records (T, 16, M), counts, kx/ky (T, 1, P), carry -> fwd_out (T, 8, P)
+    under the upstream cotangent g (T, 8, P). It re-runs the forward walk
+    with its early exit, takes the suffix sums as the saved totals minus
+    the inclusive prefix, and fills the ten field rows (rows 10-15 stay 0).
+    Tiles are processed PLAIN_BATCH_TILES at a time."""
+    d_rec = torch.zeros_like(records)
+    for t0 in range(0, records.shape[0], PLAIN_BATCH_TILES):
+        sl = slice(t0, t0 + PLAIN_BATCH_TILES)
+        d_rec[sl] = _composite_bwd_tiles(records[sl], counts[sl], kx[sl],
+                                         ky[sl], carry[sl], fwd_out[sl], g[sl])
+    return d_rec
+
+
+def carry_cotangent(carry, fwd_out, g) -> torch.Tensor:
+    """The closed-form cotangent of the incoming carry (the reference's
+    `_composite_bwd`): the accumulators pass through, d = g; every
+    contribution and the outgoing T scale with the incoming T, so
+    d T_in = [g . (out - carry) over rows 0-3 + g_T T_out] / T_in (0 where
+    T_in is 0)."""
+    trans_in = carry[:, 4:5]
+    num = ((g[:, 0:4] * (fwd_out[:, 0:4] - carry[:, 0:4])).sum(
+        dim=1, keepdim=True) + g[:, 4:5] * fwd_out[:, 4:5])
+    d_trans = torch.where(trans_in > 0.0,
+                          num / torch.clamp(trans_in, min=1e-30), 0.0)
+    return torch.cat([g[:, 0:4], d_trans, torch.zeros_like(g[:, 5:8])], dim=1)
 
 
 def _check(records, counts, kx, ky, carry, n_sel=None):
@@ -140,12 +247,22 @@ def _check(records, counts, kx, ky, carry, n_sel=None):
         raise ValueError("carry must be (T, 8, P) and kx, ky (T, 1, P)")
     if counts.shape != (t,) or (n_sel is None and t != tiles):
         raise ValueError("counts must be (T,) and match the records")
-    for x in (records, kx, ky, carry):
-        if x.dtype != torch.float32:
-            raise ValueError("records, kx, ky and carry must be float32")
     for x in (counts, kx, ky, carry):
         if x.device != records.device:
             raise ValueError("all composite inputs must share a device")
+    if records.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {records.device}")
+    # float64 only for the plain versions (CPU), e.g. under gradcheck.
+    ok = (torch.float32,) if records.device.type == "cuda" else (
+        torch.float32, torch.float64)
+    for x in (kx, ky, carry):
+        if records.dtype not in ok or x.dtype != records.dtype:
+            raise ValueError("records, kx, ky and carry must be float32 "
+                             "(float64 only on the CPU)")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _launch(records, counts, sel, kx, ky, carry, out):
@@ -153,11 +270,68 @@ def _launch(records, counts, sel, kx, ky, carry, out):
     counts = counts.to(torch.int32).contiguous()
     kx, ky = kx.contiguous(), ky.contiguous()
     p = carry.shape[-1]
-    COMPOSITE(records.data_ptr(), counts.data_ptr(),
-              None if sel is None else sel.data_ptr(), kx.data_ptr(),
-              ky.data_ptr(), carry.data_ptr(), out.data_ptr(),
+    COMPOSITE(records, counts,
+              sel, kx,
+              ky, carry, out,
               records.shape[0], _F, records.shape[2], p,
-              stream=torch.cuda.current_stream(records.device).cuda_stream)
+              stream=_stream(records))
+
+
+def composite_records_bwd(records, counts, sel, kx, ky, carry, fwd_out, g):
+    """d_records (Tb, 16, M) of a composite (sel None: kx, ky, g are (Tb,
+    ...) like the records) or of a deepening pass (kx, ky, g are the full
+    (T, ...) tensors and block b is tile sel[b]); carry and fwd_out are the
+    residuals (Tb, 8, P) of the forward. A CPU tensor runs
+    composite_bwd_plain, a CUDA tensor launches K8."""
+    if records.device.type == "cpu":
+        if sel is not None:
+            sel = sel.long()
+            kx, ky, g = kx[sel], ky[sel], g[sel]
+        return composite_bwd_plain(records, counts, kx, ky, carry, fwd_out, g)
+    d_rec = torch.zeros_like(records)
+    records = records.contiguous()
+    counts = counts.to(torch.int32).contiguous()
+    if sel is not None:
+        sel = sel.to(torch.int32).contiguous()
+    kx, ky = kx.contiguous(), ky.contiguous()
+    carry, fwd_out = carry.contiguous(), fwd_out.contiguous()
+    g = g.contiguous()
+    COMPOSITE_BWD(records, counts,
+                  sel, kx,
+                  ky, carry, fwd_out,
+                  g, d_rec, records.shape[0], _F,
+                  records.shape[2], kx.shape[-1], stream=_stream(records))
+    return d_rec
+
+
+class _Composite(torch.autograd.Function):
+    """composite_records with the reference's VJP (`_composite_fwd`,
+    `_composite_bwd`): K8 (or its plain version) for the records, the
+    closed form for the carry."""
+
+    @staticmethod
+    def forward(ctx, records, counts, kx, ky, carry):
+        if records.device.type == "cpu":
+            out = composite_plain(records, counts, kx, ky, carry)
+        else:
+            carry = carry.contiguous()
+            out = torch.empty_like(carry)
+            _launch(records, counts, None, kx, ky, carry, out)
+        ctx.save_for_backward(records, counts, kx, ky, carry, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        with record_function("fourdgs::composite_bwd"):
+            records, counts, kx, ky, carry, out = ctx.saved_tensors
+            g = g.contiguous()
+            d_rec = d_carry = None
+            if ctx.needs_input_grad[0]:
+                d_rec = composite_records_bwd(records, counts, None, kx, ky,
+                                              carry, out, g)
+            if ctx.needs_input_grad[4]:
+                d_carry = carry_cotangent(carry, out, g)
+            return d_rec, None, None, None, d_carry
 
 
 def composite_records(records: torch.Tensor, counts: torch.Tensor,
@@ -165,16 +339,55 @@ def composite_records(records: torch.Tensor, counts: torch.Tensor,
                       carry: torch.Tensor) -> torch.Tensor:
     """(T, 16, M) records + (T, 8, P) carry -> new (T, 8, P): rows r, g, b,
     a, transmittance. carry holds the accumulators of an earlier (nearer)
-    depth slab; use identity_carry() for the first slab."""
+    depth slab; use identity_carry() for the first slab. Differentiable in
+    records and carry; the output is saved for the backward, so it must not
+    be updated in place while a graph holds it."""
     _check(records, counts, kx, ky, carry)
-    if records.device.type == "cpu":
-        return composite_plain(records, counts, kx, ky, carry)
-    if records.device.type != "cuda":
-        raise ValueError(f"unsupported device {records.device}")
-    carry = carry.contiguous()
-    out = torch.empty_like(carry)
-    _launch(records, counts, None, kx, ky, carry, out)
-    return out
+    return _Composite.apply(records, counts, kx, ky, carry)
+
+
+class _CompositeAt(torch.autograd.Function):
+    """composite_records_at with the reference's VJP (`_composite_at_fwd`,
+    `_composite_at_bwd`). Under grad the selected tiles' carry is gathered
+    before the pass and their output after it (paid only then); the carry
+    is updated in place and marked dirty."""
+
+    @staticmethod
+    def forward(ctx, records_sel, counts_sel, sel, kx_full, ky_full,
+                carry_full):
+        grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[5]
+        sel_l = sel.long()
+        carry_sel = carry_full[sel_l] if grad else None
+        if records_sel.device.type == "cpu":
+            carry_full[sel_l] = composite_plain(
+                records_sel, counts_sel, kx_full[sel_l], ky_full[sel_l],
+                carry_full[sel_l])
+        else:
+            _launch(records_sel, counts_sel, sel.to(torch.int32).contiguous(),
+                    kx_full, ky_full, carry_full, carry_full)
+        ctx.mark_dirty(carry_full)
+        if grad:
+            ctx.save_for_backward(records_sel, counts_sel, sel, kx_full,
+                                  ky_full, carry_sel, carry_full[sel_l])
+        return carry_full
+
+    @staticmethod
+    def backward(ctx, g_full):
+        with record_function("fourdgs::composite_bwd"):
+            records_sel, counts_sel, sel, kx, ky, carry_sel, out_sel = \
+                ctx.saved_tensors
+            g_full = g_full.contiguous()
+            sel_l = sel.long()
+            d_rec = d_carry = None
+            if ctx.needs_input_grad[0]:
+                d_rec = composite_records_bwd(records_sel, counts_sel, sel, kx,
+                                              ky, carry_sel, out_sel, g_full)
+            if ctx.needs_input_grad[5]:
+                # Unselected tiles pass the carry through: d_carry = g there.
+                d_carry = g_full.clone()
+                d_carry[sel_l] = carry_cotangent(carry_sel, out_sel,
+                                                 g_full[sel_l])
+            return d_rec, None, None, None, None, d_carry
 
 
 def composite_records_at(records_sel: torch.Tensor, counts_sel: torch.Tensor,
@@ -186,21 +399,12 @@ def composite_records_at(records_sel: torch.Tensor, counts_sel: torch.Tensor,
     Unlike the reference, which returns a new array, this updates
     `carry_full` IN PLACE (saving a (T, 8, P) copy per pass) and returns
     it. `sel` entries must be distinct; fillers with count 0 leave their
-    tile unchanged."""
+    tile unchanged. Differentiable in records_sel and carry_full."""
     _check(records_sel, counts_sel, kx_full, ky_full, carry_full,
            n_sel=sel.shape[0])
     if sel.shape != counts_sel.shape or sel.device != records_sel.device:
         raise ValueError("sel must match counts_sel in shape and device")
     if not carry_full.is_contiguous():
         raise ValueError("carry_full must be contiguous (updated in place)")
-    if records_sel.device.type == "cpu":
-        sel = sel.long()
-        carry_full[sel] = composite_plain(records_sel, counts_sel,
-                                          kx_full[sel], ky_full[sel],
-                                          carry_full[sel])
-        return carry_full
-    if records_sel.device.type != "cuda":
-        raise ValueError(f"unsupported device {records_sel.device}")
-    _launch(records_sel, counts_sel, sel.to(torch.int32).contiguous(),
-            kx_full, ky_full, carry_full, carry_full)
-    return carry_full
+    return _CompositeAt.apply(records_sel, counts_sel, sel, kx_full, ky_full,
+                              carry_full)

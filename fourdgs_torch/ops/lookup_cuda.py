@@ -65,7 +65,7 @@ def sample_blocks(arrs: Sequence[torch.Tensor], stride_rows: int,
         nblocks = num_sample_blocks(n, stride_rows)
         out = torch.empty(nblocks * take_rows * 128, dtype=a.dtype,
                           device=a.device)
-        SAMPLE_BLOCKS(a.data_ptr(), out.data_ptr(), nblocks, stride_rows,
+        SAMPLE_BLOCKS(a, out, nblocks, stride_rows,
                       take_rows,
                       stream=torch.cuda.current_stream(a.device).cuda_stream)
         outs.append(out)

@@ -2,7 +2,9 @@
 `pack_record_fields` and, fused with the span of `tail_meta`, `pack_rows`).
 
 Kernels K4 and K5 (`csrc/pack.cu`) plus their plain PyTorch versions. A CPU
-tensor runs the plain version; a CUDA tensor launches the kernel.
+tensor runs the plain version; a CUDA tensor launches the kernel. The record
+pack is differentiable; its backward is plain PyTorch, as the reference's is
+plain XLA. The meta pack holds integers and has none.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import ctypes
 from typing import Sequence
 
 import torch
+from torch.profiler import record_function
 
 from fourdgs_torch.ops._build import CudaKernel
 
@@ -26,14 +29,15 @@ PACK_META_ROWS = CudaKernel(
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2, extra_flags=_FLAGS)
 
 
-def _check_rows(rows: Sequence[torch.Tensor], dtype, pad_to: int):
+def _check_rows(rows: Sequence[torch.Tensor], dtypes, pad_to: int):
     n = rows[0].shape[0]
     if pad_to < n:
         raise ValueError(f"pad_to={pad_to} is below the length {n}")
     for r in rows:
-        if r.shape != (n,) or r.dtype != dtype:
-            raise ValueError(f"want ({n},) {dtype} rows, got "
-                             f"{tuple(r.shape)} {r.dtype}")
+        if r.shape != (n,) or r.dtype not in dtypes \
+                or r.dtype != rows[0].dtype:
+            raise ValueError(f"want ({n},) rows of one dtype in {dtypes}, "
+                             f"got {tuple(r.shape)} {r.dtype}")
         if r.device != rows[0].device:
             raise ValueError("all rows must share a device")
     dev = rows[0].device
@@ -63,23 +67,61 @@ def pack_record_fields_plain(rows: Sequence[torch.Tensor], inv_p: torch.Tensor,
     return out
 
 
+def pack_record_fields_bwd(d_out: torch.Tensor, l0: torch.Tensor,
+                           l1: torch.Tensor, inv_p: torch.Tensor):
+    """The reference's `_pack_rec_core_bwd` (plain XLA there, plain PyTorch
+    here): the (10, pad_to) cotangent -> the 10 (N,) row cotangents. Rows 0
+    and 1 scale by 1/p00 and 1/p11, the il rows become -d il^2 (il = 0
+    where l == 0), the others pass through. p00 and p11 are camera
+    constants and get none."""
+    n = l0.shape[0]
+    d = d_out[:, :n]
+
+    def recip(l):
+        return torch.where(l != 0.0, 1.0 / l, 0.0)
+    il0, il1 = recip(l0), recip(l1)
+    return (d[0] * inv_p[0], d[1] * inv_p[1], d[2], d[3], -d[4] * il0 * il0,
+            -d[5] * il1 * il1, d[6], d[7], d[8], d[9])
+
+
+class _PackRecordFields(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, inv_p, pad_to, *rows):
+        n = rows[0].shape[0]
+        if rows[0].device.type == "cpu":
+            out = pack_record_fields_plain(rows, inv_p, pad_to)
+        else:
+            rows = [x.contiguous() for x in rows]
+            out = torch.empty((N_RECORD, pad_to), dtype=torch.float32,
+                              device=rows[0].device)
+            PACK_RECORD_FIELDS(*rows,
+                               inv_p, out, n, pad_to,
+                               stream=torch.cuda.current_stream(
+                                   rows[0].device).cuda_stream)
+        ctx.save_for_backward(inv_p, rows[4], rows[5])
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        with record_function("fourdgs::pack_bwd"):
+            inv_p, l0, l1 = ctx.saved_tensors
+            return (None, None) + pack_record_fields_bwd(d_out, l0, l1, inv_p)
+
+
 def pack_record_fields(mx, my, v0x, v0y, l0, l1, r, g, b, a_eff, p00, p11,
                        pad_to: int) -> torch.Tensor:
     """(10, pad_to) float32 record matrix [mx/p00, my/p11, v0x, v0y, 1/l0,
     1/l1, r, g, b, a_eff] from the projected components, the centers scaled
     by multiplying with 1/p00 and 1/p11; l == 0 maps to il == 0, and the
-    columns past N are zero."""
+    columns past N are zero. Differentiable in the ten rows (an autograd
+    Function with the reference's VJP, pack_record_fields_bwd); float64
+    rows are taken on the CPU only."""
     rows = (mx, my, v0x, v0y, l0, l1, r, g, b, a_eff)
-    n, dev = _check_rows(rows, torch.float32, pad_to)
-    inv_p = _inv_p(p00, p11, mx)
-    if dev.type == "cpu":
-        return pack_record_fields_plain(rows, inv_p, pad_to)
-    rows = [x.contiguous() for x in rows]
-    out = torch.empty((N_RECORD, pad_to), dtype=torch.float32, device=dev)
-    PACK_RECORD_FIELDS(*(x.data_ptr() for x in rows), inv_p.data_ptr(),
-                       out.data_ptr(), n, pad_to,
-                       stream=torch.cuda.current_stream(dev).cuda_stream)
-    return out
+    dtypes = (torch.float32,) if mx.device.type == "cuda" else (
+        torch.float32, torch.float64)
+    _check_rows(rows, dtypes, pad_to)
+    inv_p = _inv_p(p00, p11, mx).detach()
+    return _PackRecordFields.apply(inv_p, pad_to, *rows)
 
 
 def pack_meta_rows_plain(alive, tx0, tx1, ty0, ty1, dbits,
@@ -97,7 +139,7 @@ def pack_meta_rows(alive, tx0, tx1, ty0, ty1, dbits,
     with span = (tx1 - tx0 + 1) * (ty1 - ty0 + 1) for live splats and 0 for
     dead ones; the columns past N are zero (dead)."""
     rows = (tx0, tx1, ty0, ty1, dbits)
-    n, dev = _check_rows(rows, torch.int32, pad_to)
+    n, dev = _check_rows(rows, (torch.int32,), pad_to)
     if alive.shape != (n,) or alive.dtype != torch.bool \
             or alive.device != dev:
         raise ValueError("alive must be an (N,) bool tensor on the rows' "
@@ -107,7 +149,7 @@ def pack_meta_rows(alive, tx0, tx1, ty0, ty1, dbits,
     alive = alive.contiguous()
     rows = [x.contiguous() for x in rows]
     out = torch.empty((N_META, pad_to), dtype=torch.int32, device=dev)
-    PACK_META_ROWS(alive.data_ptr(), *(x.data_ptr() for x in rows),
-                   out.data_ptr(), n, pad_to,
+    PACK_META_ROWS(alive, *rows,
+                   out, n, pad_to,
                    stream=torch.cuda.current_stream(dev).cuda_stream)
     return out

@@ -92,10 +92,10 @@ def rowsort_compact(key: torch.Tensor, val: torch.Tensor, keep_cols: int,
         ov = torch.empty_like(ok)
         live = torch.empty(rows, dtype=torch.int32, device=key.device)
         cut_c = None if cut is None else cut.to(torch.int32).contiguous()
-        ROWSORT(key.data_ptr(), val.data_ptr(), s, rows, row_len, keep_cols,
-                None if cut_c is None else cut_c.data_ptr(),
+        ROWSORT(key, val, s, rows, row_len, keep_cols,
+                cut_c,
                 0 if cut_c is None else cut_c.shape[0], key_shift,
-                ok.data_ptr(), ov.data_ptr(), live.data_ptr(),
+                ok, ov, live,
                 stream=torch.cuda.current_stream(key.device).cuda_stream)
     else:
         raise ValueError(f"unsupported device {key.device}")

@@ -16,11 +16,14 @@ head's per-pixel transmittance. The reference's module docstring gives the
 design in full.
 
 Kernels K6 (`csrc/tail_prepass.cu`, per-chunk band, window rect and slot
-mask) and K7 (`csrc/tail.cu`, the accumulate), each with its plain PyTorch
-version: `step_bands_rects` + `step_slot_masks` for K6,
-`tail_accumulate_plain` (the reference's `tail_accumulate_xla`, batched)
-for K7. A CPU tensor runs the plain version; a CUDA tensor launches the
-kernel.
+mask), K7 (`csrc/tail.cu`, the accumulate) and K9 (`csrc/tail_bwd.cu`, the
+accumulate's backward), each with its plain PyTorch version:
+`step_bands_rects` + `step_slot_masks` for K6, `tail_accumulate_plain` (the
+reference's `tail_accumulate_xla`, batched) for K7,
+`tail_accumulate_bwd_plain` (the chain rule of the reference's
+`_tail_bwd_kernel`) for K9. A CPU tensor runs the plain version; a CUDA
+tensor launches the kernel. `tail_accumulate` is an autograd Function that
+differentiates `fields`; the plain versions also take float64 CPU tensors.
 
 The reference's band assignment sums a chunk's depth bits in int32, which
 wraps past 2^31 for chunks with more than about 8,000 live entries (ROADMAP
@@ -34,6 +37,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from fourdgs_torch.ops import pack_cuda
 from fourdgs_torch.ops._build import CudaKernel
@@ -60,6 +64,9 @@ TAIL_PREPASS = CudaKernel(
 TAIL_ACCUMULATE = CudaKernel(
     "tail.cu", "fourdgs_tail_accumulate",
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12, extra_flags=_FLAGS)
+TAIL_ACCUMULATE_BWD = CudaKernel(
+    "tail_bwd.cu", "fourdgs_tail_accumulate_bwd",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11, extra_flags=_FLAGS)
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -262,7 +269,7 @@ def tail_prepass(meta, band_cuts, chunk: int, budget: int,
     meta = meta.contiguous()
     cuts = band_cuts.to(torch.int32).contiguous()
     out = torch.empty((steps, 6), dtype=torch.int32, device=meta.device)
-    TAIL_PREPASS(meta.data_ptr(), cuts.data_ptr(), out.data_ptr(), npts,
+    TAIL_PREPASS(meta, cuts, out, npts,
                  chunk, budget, budget_lo, k_bands - 1, steps,
                  stream=_stream(meta))
     return out[:, 0], out[:, 1:5], out[:, 5]
@@ -281,6 +288,11 @@ def _cut_table(cut: torch.Tensor) -> torch.Tensor:
                                    dtype=torch.int32)])
 
 
+def _mask_arg(slot_mask):
+    return None if slot_mask is None else \
+        slot_mask.to(torch.int32).contiguous()
+
+
 def tail_accumulate_plain(fields, meta, band, cut, params_row, k_bands: int,
                           nx: int, ny: int, chunk: int, budget: int,
                           s_cy: int, s_cx: int, budget_lo: int = 0,
@@ -293,17 +305,52 @@ def tail_accumulate_plain(fields, meta, band, cut, params_row, k_bands: int,
     rows_per_band = nx * ny_pad
     dev = meta.device
     acc = torch.zeros((k_bands * rows_per_band, N_PLANES * n_samp),
-                      dtype=torch.float32, device=dev)
+                      dtype=fields.dtype, device=dev)
+    for idx, row, f, pair in _live_pairs(fields, meta, band, cut, params_row,
+                                         nx, ny, chunk, budget, s_cy, s_cx,
+                                         budget_lo, exact_clip):
+        alpha = pair[-1]
+        cr, cg, cb = f[6:9]
+        planes = torch.cat([alpha, alpha * cr[:, None],
+                            alpha * cg[:, None], alpha * cb[:, None],
+                            alpha * alpha, torch.log1p(-alpha)], dim=1)
+        acc.index_add_(0, row, planes)
+    return acc
+
+
+def _widening(f, bx2, by2):
+    """Per pair: the footprint widened by the coarse block's box filter at
+    preserved mass: (c0, c1, m0, m1) with m = 1/sqrt(1 + c il^2)."""
+    v0x, v0y, il0, il1 = f[2], f[3], f[4], f[5]
+    c0 = bx2 * (v0x * v0x) + by2 * (v0y * v0y)
+    c1 = bx2 * (v0y * v0y) + by2 * (v0x * v0x)
+    m0 = 1.0 / torch.sqrt(1.0 + c0 * (il0 * il0))
+    m1 = 1.0 / torch.sqrt(1.0 + c1 * (il1 * il1))
+    return c0, c1, m0, m1
+
+
+def _live_pairs(fields, meta, band, cut, params_row, nx: int, ny: int,
+                chunk: int, budget: int, s_cy: int, s_cx: int, budget_lo: int,
+                exact_clip: bool):
+    """The live (pair, slot)s of the stream, PLAIN_BATCH_PAIRS splats and
+    one slot at a time: yields (idx, row, f, (dx, dy, e0, e1, n0, n1, w,
+    cov, aw, alpha)) with idx the splat indices (int64, global), row their
+    accumulator rows, f = fields[:, idx] (10, L) and the per-sample
+    quantities (L, n_samp) in the kernels' order of operations."""
+    n_samp = s_cy * s_cx
+    npts = meta.shape[1]
+    ny_pad = ny_padded(ny)
+    rows_per_band = nx * ny_pad
+    dev, dtype = meta.device, fields.dtype
     kx_t, kx_j, kx_0, ky_t, ky_j, ky_0, bx2, by2 = params_row.unbind()
     jidx = torch.arange(n_samp, device=dev)
-    jy = torch.div(jidx, s_cx, rounding_mode="floor").to(torch.float32)
-    jx = (jidx % s_cx).to(torch.float32)
+    jy = torch.div(jidx, s_cx, rounding_mode="floor").to(dtype)
+    jx = (jidx % s_cx).to(dtype)
     cut_pad = _cut_table(cut)
     step = max(chunk, PLAIN_BATCH_PAIRS // chunk * chunk)
     for p0 in range(0, npts, step):
         p1 = min(npts, p0 + step)
         tx0, tx1, ty0, ty1, dbits, span = meta[:, p0:p1]
-        f = fields[:, p0:p1]
         band_b = torch.repeat_interleave(band[p0 // chunk:p1 // chunk], chunk)
         nxs = torch.clamp(tx1 - tx0 + 1, min=1)
         for s in range(budget):
@@ -319,35 +366,190 @@ def tail_accumulate_plain(fields, meta, band, cut, params_row, k_bands: int,
             idx = live.nonzero().squeeze(1)
             if idx.numel() == 0:
                 continue
-            sx, sy, v0x, v0y, il0, il1, cr, cg, cb, a_eff = f[:, idx]
-            m0 = 1.0 / torch.sqrt(1.0 + (bx2 * (v0x * v0x) + by2 * (v0y * v0y))
-                                  * (il0 * il0))
-            m1 = 1.0 / torch.sqrt(1.0 + (bx2 * (v0y * v0y) + by2 * (v0x * v0x))
-                                  * (il1 * il1))
+            f = fields[:, p0 + idx]
+            sx, sy, v0x, v0y, il0, il1 = f[:6]
+            _, _, m0, m1 = _widening(f, bx2, by2)
             il0w = il0 * m0 * _QSCALE
             il1w = il1 * m1 * _QSCALE
-            gate = a_eff * (m0 * m1)
-            txf = tx[idx].to(torch.float32)[:, None]
-            tyf = ty[idx].to(torch.float32)[:, None]
+            gate = f[9] * (m0 * m1)
+            txf = tx[idx].to(dtype)[:, None]
+            tyf = ty[idx].to(dtype)[:, None]
             kxs = kx_t * txf + kx_j * jx[None, :] + kx_0
             kys = ky_t * tyf + ky_j * jy[None, :] + ky_0
             dx = kxs - sx[:, None]
             dy = kys - sy[:, None]
-            n0 = (v0x[:, None] * dx + v0y[:, None] * dy) * il0w[:, None]
-            n1 = (v0y[:, None] * dx - v0x[:, None] * dy) * il1w[:, None]
+            e0 = v0x[:, None] * dx + v0y[:, None] * dy
+            e1 = v0y[:, None] * dx - v0x[:, None] * dy
+            n0 = e0 * il0w[:, None]
+            n1 = e1 * il1w[:, None]
             w = torch.exp(-(n0 * n0 + n1 * n1))
             cov = w >= 1e-4
             if exact_clip:
                 cov &= ((torch.abs(n0) <= (0.5 * _QSCALE) * m0[:, None])
                         & (torch.abs(n1) <= (0.5 * _QSCALE) * m1[:, None]))
-            alpha = torch.clamp(torch.where(cov, gate[:, None] * w, 0.0),
-                                max=ALPHA_MAX)
-            planes = torch.cat([alpha, alpha * cr[:, None],
-                                alpha * cg[:, None], alpha * cb[:, None],
-                                alpha * alpha, torch.log1p(-alpha)], dim=1)
+            aw = gate[:, None] * w
+            alpha = torch.clamp(torch.where(cov, aw, 0.0), max=ALPHA_MAX)
             row = (band_b[idx] * rows_per_band + tx[idx] * ny_pad + ty[idx])
-            acc.index_add_(0, row.long(), planes)
+            yield (p0 + idx, row.long(), f,
+                   (dx, dy, e0, e1, n0, n1, w, cov, aw, alpha))
+
+
+def tail_accumulate_bwd_plain(fields, meta, band, cut, params_row, d_acc,
+                              k_bands: int, nx: int, ny: int, chunk: int,
+                              budget: int, s_cy: int, s_cx: int,
+                              budget_lo: int = 0, exact_clip: bool = False):
+    """d_fields (10, Np) of tail_accumulate under the cotangent d_acc (its
+    shape): the chain rule of the reference's `_tail_bwd_kernel` without
+    the weighting knobs. Each live pair reads its samples' plane cotangents
+    d_acc[row, plane * n_samp + sample] (the transposed one-hot), chains
+    them through alpha = min(gate w, 1 - 1e-6), w = exp(-(n0^2 + n1^2)),
+    n = e il m sqrt(32) to the fields, sums over samples and slots, and
+    then through the widening m = 1/sqrt(1 + c il^2), gate = a_eff m0 m1.
+    exact_clip gates coverage and carries no gradient."""
+    n_samp = s_cy * s_cx
+    d_planes = d_acc.reshape(-1, N_PLANES, n_samp)
+    bx2, by2 = params_row[6], params_row[7]
+    # Per-pair sums over (slot, sample): d gate, d sx, d sy, d(il0 m0) and
+    # d(il1 m1) before the sqrt(32), the direct d v0x and d v0y, d r, g, b.
+    sums = fields.new_zeros((10, fields.shape[1]))
+    for idx, row, f, pair in _live_pairs(fields, meta, band, cut, params_row,
+                                         nx, ny, chunk, budget, s_cy, s_cx,
+                                         budget_lo, exact_clip):
+        dx, dy, e0, e1, n0, n1, w, cov, aw, alpha = pair
+        v0x, v0y, il0, il1 = (x[:, None] for x in f[2:6])
+        _, _, m0, m1 = _widening(f, bx2, by2)
+        il0w = il0 * m0[:, None] * _QSCALE
+        il1w = il1 * m1[:, None] * _QSCALE
+        gate = (f[9] * (m0 * m1))[:, None]
+        dA, dAr, dAg, dAb, dA2, dL = d_planes[row].unbind(1)
+        cr, cg, cb = (x[:, None] for x in f[6:9])
+        d_alpha = (dA + dAr * cr + dAg * cg + dAb * cb + 2.0 * alpha * dA2
+                   - dL / (1.0 - alpha))
+        d_aw = torch.where(cov & (aw < ALPHA_MAX), d_alpha, 0.0)
+        dqn = d_aw * gate * w * (-2.0)       # d w / d n_i = -2 n_i w
+        dn0 = n0 * dqn
+        dn1 = n1 * dqn
+        sums.index_add_(1, idx, torch.stack([
+            d_aw * w,
+            -(dn0 * v0x * il0w + dn1 * v0y * il1w),
+            -(dn0 * v0y * il0w - dn1 * v0x * il1w),
+            dn0 * e0, dn1 * e1,
+            dn0 * dx * il0w - dn1 * dy * il1w,
+            dn0 * dy * il0w + dn1 * dx * il1w,
+            dAr * alpha, dAg * alpha, dAb * alpha]).sum(dim=2))
+    return _widening_bwd(fields, sums, bx2, by2)
+
+
+def _widening_bwd(fields, sums, bx2, by2):
+    """Per pair: the summed cotangents -> d fields (10, Np), through il_w =
+    il m sqrt(32), gate = a_eff m0 m1 and m = 1/sqrt(1 + c il^2)."""
+    d_gate, d_sx, d_sy, d_e0, d_e1, d_v0x_e, d_v0y_e, d_cr, d_cg, d_cb = sums
+    v0x, v0y, il0, il1, a_eff = fields[2], fields[3], fields[4], fields[5], \
+        fields[9]
+    c0, c1, m0, m1 = _widening(fields, bx2, by2)
+    d_il0w = _QSCALE * d_e0
+    d_il1w = _QSCALE * d_e1
+    d_m0 = d_il0w * il0 + d_gate * a_eff * m1
+    d_m1 = d_il1w * il1 + d_gate * a_eff * m0
+    d_u0 = d_m0 * (-0.5) * m0 * m0 * m0
+    d_u1 = d_m1 * (-0.5) * m1 * m1 * m1
+    d_c0 = d_u0 * il0 * il0
+    d_c1 = d_u1 * il1 * il1
+    return torch.stack([
+        d_sx, d_sy,
+        d_v0x_e + 2.0 * v0x * (d_c0 * bx2 + d_c1 * by2),
+        d_v0y_e + 2.0 * v0y * (d_c0 * by2 + d_c1 * bx2),
+        d_il0w * m0 + d_u0 * 2.0 * c0 * il0,
+        d_il1w * m1 + d_u1 * 2.0 * c1 * il1,
+        d_cr, d_cg, d_cb, d_gate * m0 * m1])
+
+
+def _accumulate_fwd(fields, meta, band, rect, cut, params_row, slot_mask,
+                    st):
+    if _device(meta) == "cpu":
+        return tail_accumulate_plain(
+            fields, meta, band, cut, params_row, st["k_bands"], st["nx"],
+            st["ny"], st["chunk"], st["budget"], st["s_cy"], st["s_cx"],
+            st["budget_lo"], st["exact_clip"])
+    n_samp = st["s_cy"] * st["s_cx"]
+    npts = meta.shape[1]
+    ny_pad = ny_padded(st["ny"])
+    acc = torch.zeros((st["k_bands"] * st["nx"] * ny_pad, N_PLANES * n_samp),
+                      dtype=torch.float32, device=meta.device)
+    mask = _mask_arg(slot_mask)
+    cut_t = _cut_table(cut).contiguous()
+    TAIL_ACCUMULATE(fields.contiguous(),
+                    meta.contiguous(),
+                    band.to(torch.int32).contiguous(),
+                    rect.to(torch.int32).contiguous(),
+                    mask,
+                    cut_t,
+                    params_row.to(torch.float32).contiguous(),
+                    acc, npts, npts // st["chunk"], st["chunk"],
+                    st["budget"], st["budget_lo"], st["nx"], ny_pad,
+                    st["s_cx"], n_samp, st["k_bands"], int(st["exact_clip"]),
+                    SUB, stream=_stream(meta))
     return acc
+
+
+def tail_accumulate_bwd(fields, meta, band, cut, params_row, d_acc,
+                        slot_mask=None, *, k_bands: int, nx: int, ny: int,
+                        chunk: int, budget: int, s_cy: int, s_cx: int,
+                        budget_lo: int = 0, exact_clip: bool = False):
+    """d_fields (10, Np) of tail_accumulate: a CPU tensor runs
+    tail_accumulate_bwd_plain, a CUDA tensor launches K9 (which takes
+    n_samp = s_cy * s_cx a power of two up to 32)."""
+    if _device(meta) == "cpu":
+        return tail_accumulate_bwd_plain(fields, meta, band, cut, params_row,
+                                         d_acc, k_bands, nx, ny, chunk,
+                                         budget, s_cy, s_cx, budget_lo,
+                                         exact_clip)
+    n_samp = s_cy * s_cx
+    if n_samp > 32 or n_samp & (n_samp - 1):
+        raise ValueError(f"the tail backward kernel takes s_cy * s_cx a "
+                         f"power of two up to 32, got {n_samp}")
+    npts = meta.shape[1]
+    ny_pad = ny_padded(ny)
+    if d_acc.shape != (k_bands * nx * ny_pad, N_PLANES * n_samp):
+        raise ValueError(f"d_acc has shape {tuple(d_acc.shape)}")
+    d_fields = torch.empty((10, npts), dtype=torch.float32,
+                           device=meta.device)
+    mask = _mask_arg(slot_mask)
+    cut_t = _cut_table(cut).contiguous()
+    TAIL_ACCUMULATE_BWD(fields.contiguous(),
+                        meta.contiguous(),
+                        band.to(torch.int32).contiguous(),
+                        mask,
+                        cut_t,
+                        params_row.to(torch.float32).contiguous(),
+                        d_acc.to(torch.float32).contiguous(),
+                        d_fields, npts, npts // chunk, chunk,
+                        budget, budget_lo, nx, ny_pad, s_cx, n_samp, k_bands,
+                        int(exact_clip), stream=_stream(meta))
+    return d_fields
+
+
+class _TailAccumulate(torch.autograd.Function):
+    """tail_accumulate with the reference's VJP (`_tail_core_fwd`,
+    `_tail_core_bwd`): the fields get K9's (or its plain version's)
+    cotangent; meta, band, rect, cut and slot_mask are integers and
+    params_row a camera constant, so they get none."""
+
+    @staticmethod
+    def forward(ctx, fields, meta, band, rect, cut, params_row, slot_mask,
+                st):
+        ctx.st = st
+        ctx.save_for_backward(fields, meta, band, cut, params_row, slot_mask)
+        return _accumulate_fwd(fields, meta, band, rect, cut, params_row,
+                               slot_mask, st)
+
+    @staticmethod
+    def backward(ctx, d_acc):
+        with record_function("fourdgs::tail_bwd"):
+            fields, meta, band, cut, params_row, slot_mask = ctx.saved_tensors
+            d_fields = tail_accumulate_bwd(fields, meta, band, cut, params_row,
+                                           d_acc, slot_mask, **ctx.st)
+            return d_fields, None, None, None, None, None, None, None
 
 
 def tail_accumulate(fields, meta, band, rect, cut, params_row, k_bands: int,
@@ -365,7 +567,9 @@ def tail_accumulate(fields, meta, band, rect, cut, params_row, k_bands: int,
     lies in the bbox, and its key exceeds cut[tile].
     Returns acc (k_bands * nx * ny_pad, 6 * s_cy * s_cx) f32, row band *
     nx * ny_pad + tx * ny_pad + ty, column plane * n_samp + sample.
-    The within-band weighting knobs (wd_ab, alpha_pow) are not ported."""
+    Differentiable in fields (K9 on the card). float64 fields are taken on
+    the CPU only. The within-band weighting knobs (wd_ab, alpha_pow) are
+    not ported."""
     if wd_ab is not None or alpha_pow:
         raise NotImplementedError(
             "tail_depth_beta / tail_alpha_power are not ported (ROADMAP.md, "
@@ -374,36 +578,23 @@ def tail_accumulate(fields, meta, band, rect, cut, params_row, k_bands: int,
     steps = npts // chunk
     if meta.shape[0] != 6 or meta.dtype != torch.int32 or steps * chunk != npts:
         raise ValueError(f"meta must be (6, Np) int32 with Np % {chunk} == 0")
+    dtypes = (torch.float32,) if meta.device.type == "cuda" else (
+        torch.float32, torch.float64)
     if fields.shape[0] != 10 or fields.shape[1] > npts \
-            or fields.dtype != torch.float32:
-        raise ValueError(f"fields must be (10, <= {npts}) float32")
+            or fields.dtype not in dtypes:
+        raise ValueError(f"fields must be (10, <= {npts}) float32 (float64 "
+                         f"only on the CPU)")
     if band.shape != (steps,) or rect.shape != (steps, 4):
         raise ValueError("band must be (S,) and rect (S, 4)")
     for t in (fields, band, rect, cut, params_row) + (
             () if slot_mask is None else (slot_mask,)):
         if t.device != meta.device:
             raise ValueError("all tail inputs must share a device")
+    _device(meta)
     if fields.shape[1] != npts:
         fields = F.pad(fields, (0, npts - fields.shape[1]))
-    if _device(meta) == "cpu":
-        return tail_accumulate_plain(fields, meta, band, cut, params_row,
-                                     k_bands, nx, ny, chunk, budget, s_cy,
-                                     s_cx, budget_lo, exact_clip)
-    n_samp = s_cy * s_cx
-    ny_pad = ny_padded(ny)
-    acc = torch.zeros((k_bands * nx * ny_pad, N_PLANES * n_samp),
-                      dtype=torch.float32, device=meta.device)
-    fields = fields.contiguous()
-    meta = meta.contiguous()
-    band = band.to(torch.int32).contiguous()
-    rect = rect.to(torch.int32).contiguous()
-    mask = None if slot_mask is None else slot_mask.to(torch.int32).contiguous()
-    cut_t = _cut_table(cut).contiguous()
-    params = params_row.to(torch.float32).contiguous()
-    TAIL_ACCUMULATE(fields.data_ptr(), meta.data_ptr(), band.data_ptr(),
-                    rect.data_ptr(), None if mask is None else mask.data_ptr(),
-                    cut_t.data_ptr(), params.data_ptr(), acc.data_ptr(),
-                    npts, steps, chunk, budget, budget_lo, nx, ny_pad, s_cx,
-                    n_samp, k_bands, int(exact_clip), SUB,
-                    stream=_stream(meta))
-    return acc
+    st = dict(k_bands=k_bands, nx=nx, ny=ny, chunk=chunk, budget=budget,
+              s_cy=s_cy, s_cx=s_cx, budget_lo=budget_lo,
+              exact_clip=exact_clip)
+    return _TailAccumulate.apply(fields, meta, band, rect, cut, params_row,
+                                 slot_mask, st)

@@ -9,6 +9,11 @@ reference config converts with `RenderConfig(**dataclasses.asdict(cfg))`.
 `backend="pallas"` names the hand-written kernels (here CUDA). What is not
 ported yet raises NotImplementedError: the XLA-backend composite, the exact
 sort, tile-row banding and the tail's within-band weighting knobs.
+
+The frame is differentiable with respect to the packed params in both
+modes: the composite (K1/K8), the tail (K7/K9) and the record pack (K4) are
+autograd Functions with the reference's VJPs, and the binning, meta and
+bands are integers that carry no gradient, as in the reference.
 """
 
 from __future__ import annotations
@@ -206,10 +211,14 @@ def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
                              f"{cfg.deepening_passes} passes")
     if schedule and max(schedule) > m:
         pair_pad = _pad_pairs(binning.pair_splat, max(schedule))
+    if schedule and out.requires_grad:
+        # composite_records saved `out` for its backward; the deepening
+        # passes update the carry in place, so they get their own copy.
+        out = out.clone()
     for mi in schedule:
         with record_function("fourdgs::deepen_select_pack"):
             remaining = counts_full - pairs_done
-            unsat = out[:, 4, :].amax(dim=1) > 1e-6
+            unsat = out.detach()[:, 4, :].amax(dim=1) > 1e-6
             active = unsat & (remaining > 0)
             # Deterministic top-t_cap active tiles (inactive fillers are
             # no-ops: their live mask is empty and their counter does not
@@ -237,7 +246,7 @@ def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
         # Pairs dropped by the depth prune are truncation error too; with
         # the tail, pruned pairs are composited, not dropped.
         truncated = truncated | binning.tile_pruned
-    return tiles, out[:, 4, :] * truncated[:, None]
+    return tiles, out.detach()[:, 4, :] * truncated[:, None]
 
 
 def _apply_banded_tail(out, proj: Projected, binning, p00, p11,

@@ -46,6 +46,21 @@ def params4d_from_numpy(params_np: Mapping[str, np.ndarray],
     return out
 
 
+def grads4d_to_numpy(params: Mapping[str, torch.Tensor]
+                     ) -> Dict[str, np.ndarray]:
+    """The inverse of params4d_from_numpy for gradients: the `.grad` of
+    every PARAM4D_FIELDS tensor as a numpy array under the reference's key
+    (what `jax.grad` of a loss of the packed dict returns). A field that
+    got no gradient raises ValueError."""
+    out = {}
+    for k in PARAM4D_FIELDS:
+        g = params[k].grad
+        if g is None:
+            raise ValueError(f"field {k!r} has no gradient")
+        out[k] = g.detach().cpu().numpy()
+    return out
+
+
 def rot_from_quat(qw, qx, qy, qz):
     """Component form of glm::toMat3; normalizes internally. Returns the 9
     rotation components r00..r22."""

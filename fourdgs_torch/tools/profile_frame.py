@@ -1,6 +1,6 @@
 """Stage profile of the flagship frame on one card.
 
-    python3 -m fourdgs_torch.tools.profile_frame [--json PATH]
+    python3 -m fourdgs_torch.tools.profile_frame [--grad] [--json PATH]
 
 Renders the headline scene, the 10M-splat cube (`scenes/cube.py`;
 Morton-ordered and dead-padded for the converged path) at 1920x1088 on
@@ -22,6 +22,13 @@ then non-converged, reports after 3 warm-up frames:
     (the profiler's own host overhead inflates it) and the derived idle
     share 1 - busy / unprofiled median.
 
+With --grad each frame is a grad step instead: mean(img[..., :3]^2) at
+t = 0.37 and its backward to the packed params, inside a
+`fourdgs::backward` range. The autograd Functions open their own ranges
+in their backward (`fourdgs::composite_bwd` for K8, `fourdgs::tail_bwd`
+for K9, `fourdgs::pack_bwd`), so `fourdgs::backward` keeps the device time
+of every other backward operation (the projection's chain rule above all).
+
 `profile_path` also runs on the CPU, where it reports host times only.
 """
 
@@ -42,8 +49,10 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 N_SPLATS, WIDTH, HEIGHT = 10_000_000, 1920, 1088
 WARMUP, TIMED, PROFILED = 3, 10, 5
+GRAD_T = 0.37          # at t = pt the temporal fields get no gradient
 PREFIX = "fourdgs::"
 FRAME = PREFIX + "frame"
+BACKWARD = PREFIX + "backward"
 OUTSIDE = "(outside the stages)"
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -129,14 +138,26 @@ def _sync(dev):
 
 
 def profile_path(params, camera, cfg, warmup: int, timed: int,
-                 profiled: int) -> dict:
+                 profiled: int, grad: bool = False) -> dict:
     """Median of `timed` unprofiled frames, then the stage breakdown of
-    `profiled` traced frames (attribute_trace) of one render path."""
+    `profiled` traced frames (attribute_trace) of one render path; with
+    `grad`, of grad steps."""
     from fourdgs_torch.render.pipeline import render_params4d_packed
     dev = params["px"].device
+    if grad:
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
 
     def frame():
-        render_params4d_packed(params, camera, 0.0, cfg=cfg)
+        if not grad:
+            render_params4d_packed(params, camera, 0.0, cfg=cfg)
+        else:
+            for v in params.values():
+                v.grad = None
+            img = render_params4d_packed(params, camera, GRAD_T, cfg=cfg)
+            loss = (img[..., :3] ** 2).mean()
+            with record_function(BACKWARD):
+                loss.backward()
         _sync(dev)
     for _ in range(warmup):
         frame()
@@ -183,6 +204,8 @@ def main(argv=None) -> int:
                                            converged_cube_scene)
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--grad", action="store_true",
+                    help="profile grad steps instead of frames")
     ap.add_argument("--json", default=None,
                     help="also write the results to this file")
     args = ap.parse_args(argv)
@@ -190,7 +213,7 @@ def main(argv=None) -> int:
         print("profile_frame: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    report = dict(device=subprocess.run(
+    report = dict(grad=args.grad, device=subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0])
@@ -203,9 +226,10 @@ def main(argv=None) -> int:
         params = converged_cube_scene(base) if converged else base
         cfg = auto_render_config(N_SPLATS, WIDTH, HEIGHT,
                                  converged=converged)
-        res = profile_path(params, camera, cfg, WARMUP, TIMED, PROFILED)
-        _print_path(f"{label} {params['px'].shape[0]:,} splats "
-                    f"{WIDTH}x{HEIGHT}", res)
+        res = profile_path(params, camera, cfg, WARMUP, TIMED, PROFILED,
+                           grad=args.grad)
+        _print_path(f"{label} {'grad step' if args.grad else 'frame'} "
+                    f"{params['px'].shape[0]:,} splats {WIDTH}x{HEIGHT}", res)
         report[label] = res
         del params
     if args.json:

@@ -3,6 +3,7 @@ modules import without nvcc or triton, CPU tensors take the plain versions
 without launching (or building) anything, and the parameter hand-over
 rejects malformed input."""
 
+import ctypes
 import os
 import subprocess
 import sys
@@ -14,13 +15,16 @@ import torch
 
 from fourdgs_torch.ops import (composite_cuda, lookup_cuda, pack_cuda,
                                sort_cuda, tail_cuda)
-from fourdgs_torch.splats.packed import PARAM4D_FIELDS, params4d_from_numpy
+from fourdgs_torch.ops._build import CudaKernel
+from fourdgs_torch.splats.packed import (PARAM4D_FIELDS, grads4d_to_numpy,
+                                         params4d_from_numpy)
 
 REPO = Path(__file__).resolve().parents[1]
 KERNELS = (composite_cuda.COMPOSITE, sort_cuda.ROWSORT,
            lookup_cuda.SAMPLE_BLOCKS, pack_cuda.PACK_RECORD_FIELDS,
            pack_cuda.PACK_META_ROWS, tail_cuda.TAIL_PREPASS,
-           tail_cuda.TAIL_ACCUMULATE)
+           tail_cuda.TAIL_ACCUMULATE, composite_cuda.COMPOSITE_BWD,
+           tail_cuda.TAIL_ACCUMULATE_BWD)
 
 
 def test_package_never_imports_jax():
@@ -49,25 +53,30 @@ def test_cpu_tensors_take_the_plain_versions():
     lookup_cuda.sample_blocks([key], stride_rows=3, take_rows=2)
     sort_cuda.rowsort_compact(key, key, 8, row_len=16,
                               cut=torch.tensor([5 << 20], dtype=torch.int32))
-    rec = torch.zeros((2, 16, 128))
+    rec = torch.zeros((2, 16, 128), requires_grad=True)
     counts = torch.tensor([3, 0], dtype=torch.int32)
     kx = torch.zeros((2, 1, 256))
     carry = composite_cuda.identity_carry(2, 256)
     out = composite_cuda.composite_records(rec, counts, kx, kx, carry)
-    composite_cuda.composite_records_at(rec[:1], counts[:1],
-                                        torch.tensor([1]), kx, kx, out)
-    f = torch.ones(1000)
+    out = composite_cuda.composite_records_at(rec[:1], counts[:1],
+                                              torch.tensor([1]), kx, kx,
+                                              out.clone())
+    out.sum().backward()                          # K8's plain version
+    f = torch.ones(1000, requires_grad=True)
     pack_cuda.pack_record_fields(*([f] * 10), torch.tensor(2.0),
-                                 torch.tensor(3.0), 1024)
+                                 torch.tensor(3.0), 1024).sum().backward()
     i = torch.zeros(1000, dtype=torch.int32)
     meta = tail_cuda.tail_meta(torch.ones(1000, dtype=torch.bool), i, i, i, i,
                                i, 512)
     cuts = torch.zeros(7, dtype=torch.int32)
     band, rect, mask = tail_cuda.tail_prepass(meta, cuts, 512, 4)
-    tail_cuda.tail_accumulate(torch.zeros((10, 1024)), meta, band, rect,
+    fields = torch.zeros((10, 1024), requires_grad=True)
+    tail_cuda.tail_accumulate(fields, meta, band, rect,
                               torch.zeros(4, dtype=torch.int32),
                               torch.ones(8), 8, 2, 2, 512, 4, 1, 8,
-                              slot_mask=mask)
+                              slot_mask=mask).sum().backward()   # K9's
+    assert rec.grad is not None and f.grad is not None \
+        and fields.grad is not None
     for k in KERNELS:
         assert k.launches == 0, k.symbol
         assert k._fn is None, k.symbol             # nothing was built
@@ -126,3 +135,38 @@ def test_params4d_from_numpy_rejects(fault):
         p["sx"] = p["sx"][:, None]
     with pytest.raises(ValueError):
         params4d_from_numpy(p)
+
+
+def test_launcher_passes_live_tensors():
+    """A pointer taken from a temporary copy that is freed before the launch
+    can alias the block of the next argument's copy (ROADMAP Queue C,
+    C-P1). The launcher takes the tensors themselves, so at the launch each
+    pointer still holds its own tensor's data; None is a null pointer."""
+    seen = []
+
+    def entry(a, b, c, n, stream):
+        seen.append([ctypes.c_float.from_address(p).value for p in (a, b)]
+                    + [c, n, stream])
+        return 0
+    k = CudaKernel("none.cu", "entry", [ctypes.c_void_p] * 3 + [ctypes.c_int])
+    k._fn = entry
+    x = torch.ones(64)
+    k(x.clone(), (x + 1.0).clone(), None, 5, stream=7)
+    assert seen == [[1.0, 2.0, None, 5, 7]] and k.launches == 1
+    k._fn = lambda *args: 1                        # a refused launch
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        k(x, x, None, 5, stream=7)
+    assert k.launches == 1
+
+
+def test_grads4d_to_numpy():
+    t = {k: v.requires_grad_(True)
+         for k, v in params4d_from_numpy(_params()).items()}
+    sum((i + 1) * v.sum() for i, v in enumerate(t.values())).backward()
+    g = grads4d_to_numpy(t)
+    assert list(g) == list(PARAM4D_FIELDS)
+    for i, k in enumerate(t):
+        np.testing.assert_array_equal(g[k], np.full(7, i + 1, np.float32))
+    t["px"].grad = None
+    with pytest.raises(ValueError, match="px"):
+        grads4d_to_numpy(t)

@@ -80,3 +80,22 @@ def test_profile_path_on_the_cpu_finds_every_stage():
     assert all(st["host_ms"] > 0 for st in res["stages"].values())
     assert res["median_ms"] > 0 and len(res["frames_ms"]) == 1
     assert torch.isfinite(torch.tensor(res["frame_ms"]))
+
+
+def test_profile_path_grad_step_finds_the_backward_stages():
+    """With grad, each traced frame is a grad step; the backward and each
+    autograd Function's backward have their own ranges."""
+    from fourdgs_torch.core.camera import Camera
+    from fourdgs_torch.render.autoconfig import auto_render_config
+    from fourdgs_torch.scenes.cube import (CUBE_CAMERA, build_cube_scene,
+                                           converged_cube_scene)
+    n, w, h = 2048, 256, 128
+    params = converged_cube_scene(build_cube_scene(n, seed=3))
+    cam = Camera.create(**CUBE_CAMERA, width=w, height=h)
+    res = PF.profile_path(params, cam, auto_render_config(n, w, h),
+                          warmup=0, timed=1, profiled=1, grad=True)
+    want = {PF.BACKWARD, "fourdgs::composite_bwd", "fourdgs::tail_bwd",
+            "fourdgs::pack_bwd", "fourdgs::project", "fourdgs::tail_main"}
+    assert want <= set(res["stages"])
+    assert all(res["stages"][k]["host_ms"] > 0 for k in want)
+    assert params["px"].grad is None         # the caller's params untouched
