@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `fourdgs_torch/ops/csrc/` (one
-nvcc per source, all in parallel) and drives the port's two render paths,
+nvcc per source, all in parallel) and drives the port's render paths,
 `render_params4d_packed` under `auto_render_config(n, w, h, converged=...)`,
-on the headline scene: the 10M-splat 400^3 cube at 1920x1088. Each path
+on the headline scene: the 10M-splat 400^3 cube at 1920x1088 (and, for the
+banded frame, at 3840x2160). Each path
 first renders one frame with every kernel wrapper it calls recording its
 arguments, and every kernel is then held against its plain PyTorch version
 on the same card at each of those call sites. Phases:
@@ -51,13 +52,43 @@ on the same card at each of those call sites. Phases:
       reference's bench_full.py takes it: launch counts of one step (K8
       once, K9 twice, and the forward's), finite and nonzero gradients for
       every field, the forward and forward+backward medians, their ratio,
-      and peak memory.
+      and peak memory;
+  the kernel-sorted frame (`sort_backend="pallas"` with a power-of-two keep
+  of 512: the prune as its own pass, a row sort that compacts the slots
+  into 4,096 alternating rows, the rows merged by kernels):
+  (m) K10 apply_cutkeys and K11-K13 (merge tree, every cross stage, every
+      finishing pass) against their plain versions at the inputs one such
+      10M frame gives them, keys exact and (key, value) multisets equal; the
+      whole `merge_sorted_rows` against `torch.sort` (keys, multisets,
+      sortedness, live count) in both row-direction forms, timed beside
+      `torch.sort` + gather; the compacting row sort timed on its own;
+  (n) the 20K-splat converged frame under the merge kernels, card against
+      CPU, and on the card against the default sort backend: integer
+      binning outputs and per-tile pair multisets equal, the image within
+      the tie-order tolerance;
+  (o) the full kernel-sorted frame: launch counts (K10 1, K11 1, K12 28,
+      K13 7, K2 0, the rest as (i)), counters 0, the median beside (i)'s;
+  the 4K frame (3840x2160: 135 x 30 = 4,050 tiles in two bands of tile
+  rows, each band through the whole converged path with band-relative ids):
+  (p) every kernel of the path against plain at each band's inputs; the
+      full frame: launch counts twice (i)'s, counters 0, time and peak
+      memory, and the rows at the band seam no more apart from their
+      neighbours than rows at other tile-row boundaries; a 20K-splat frame
+      of 4,224 tiles of 8x64 (three bands), both modes, card against CPU;
+  the public row pack:
+  (q) `pack_rows` of ten float32 rows of 10,010,624 against `torch.stack`,
+      exact; its backward launches K14 once and returns the cotangent's
+      rows exactly; both timed beside the PyTorch call.
 
 Any failed check raises, so the script exits non-zero. It prints a JSON
 line with one entry per kernel and path (launches per frame or grad step of
 that path; ms, plain_ms summed over the path's call sites, one launch each,
-and max_abs_err the largest over them; `calls` gives each site) and the grad
-step's numbers of (l) under "grad_step", then as its last line
+and max_abs_err the largest over them; bound_ms the least time the card
+could take for the same inputs and outputs, the larger of their bytes over
+3.35 TB/s and the function's operations over 67 TFLOP/s, with bound_by
+naming which; library_ms the time of the one PyTorch call that computes the
+same function, where there is one, else null; `calls` gives each site) and
+the grad step's numbers of (l) under "grad_step", then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -93,6 +124,18 @@ KERNEL_INFO = {
                          "fourdgs/ops/composite_pallas.py:363"),
     "K9 tail_accumulate_bwd": ("fourdgs_torch/ops/csrc/tail_bwd.cu",
                                "fourdgs/ops/tail_pallas.py:904"),
+    "K10 apply_cutkeys": ("fourdgs_torch/ops/csrc/cutkeys.cu",
+                          "fourdgs/ops/lookup_pallas.py:34"),
+    "K11 merge_tree": ("fourdgs_torch/ops/csrc/merge.cu",
+                       "fourdgs/ops/sort_pallas.py:159"),
+    "K12 merge_cross_stage": ("fourdgs_torch/ops/csrc/merge.cu",
+                              "fourdgs/ops/sort_pallas.py:208"),
+    "K13 merge_finish": ("fourdgs_torch/ops/csrc/merge.cu",
+                         "fourdgs/ops/sort_pallas.py:264"),
+    "K5 pack_rows": ("fourdgs_torch/ops/csrc/pack.cu",
+                     "fourdgs/ops/pack_pallas.py:39"),
+    "K14 unpack_rows": ("fourdgs_torch/ops/csrc/pack.cu",
+                        "fourdgs/ops/pack_pallas.py:45"),
 }
 # K7 against its plain version: the kernel adds each sample's planes with
 # atomics in no fixed order, so sums of up to thousands of terms differ in
@@ -105,6 +148,34 @@ K7_RTOL, K7_ATOL = 1e-4, 1e-5
 BWD_TOL = 1e-4
 T_GRAD = 0.37            # at t = pt the temporal fields get no gradient
 TIMED_STEPS = 5
+# The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet): HBM3
+# bandwidth, and the float32 rate outside the tensor cores, which also stands
+# for integer compare-exchanges (the data sheet's only non-tensor rate).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations counted for a bound, the least the function needs:
+PAIR_TEST_OPS = 12       # K1, K7-K9: the coverage test of one (record or
+#                          slot, pixel or sample): two differences, two
+#                          rotated and scaled dot products, two compares;
+#                          the blend of the covered ones is data-dependent
+#                          and not counted
+CMPX_OPS = 4             # K2, K11-K13: one compare-exchange of a (key,
+#                          value) pair: a compare and three selects
+# The kernel-sorted frame (sort_backend="pallas"): a power-of-two keep that
+# loses no pair at the 10M frame; and the 4K frame.
+MERGE_KEEP = 512
+MERGE_ROWS = 4096        # rows the 40M slots of that frame compact into
+W_4K, H_4K = 3840, 2160
+W_BAND, H_BAND = 1408, 1536      # 8x64 tiles: 4,224 tiles, three bands
+# Card against CPU, composite of one binning, over that image's 2.2M pixels
+# (16 times phase (e)'s): measured max |d| 1.4e-4 at isolated pixels, while
+# on the card the kernel stays within 2e-7 of its plain version on the same
+# frame, so the gap is the two devices' arithmetic, not the kernel. A
+# coverage test (|n| <= 0.5, w >= 1e-4) that falls the other way for one
+# (pixel, record) at a footprint's edge moves the pixel by at most the edge
+# weight exp(-8) = 3.4e-4 times the record's alpha: that is the tolerance.
+EDGE_TOL = 4e-4
+TIMED_FRAMES_NEW = 5
 
 
 class SmokeFailure(AssertionError):
@@ -188,12 +259,45 @@ def capture_kernel_inputs(params, camera, cfg, targets, t=0.0, grad=False):
     return seen
 
 
+def nbytes(*tensors):
+    """Bytes of the given tensors (None and non-tensors count nothing)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if hasattr(t, "element_size"))
+
+
+def site(label, err, ms, plain_ms, moved, ops, library_ms=None):
+    """One call site of a kernel: its error against plain, the times, and
+    its bound, the larger of `moved` bytes (every input read once, every
+    output written once) over the card's memory rate and `ops` operations
+    over its float32 rate."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return dict(site=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=library_ms)
+
+
 def _sites(sites):
-    """One kernel's result over its call sites in a path: times summed (one
-    launch per site), the largest error."""
+    """One kernel's result over its call sites in a path: times and bounds
+    summed (one launch per site), the largest error, the limit of the site
+    with the largest bound; a library time only if every site has one."""
+    lib = [s["library_ms"] for s in sites]
     return dict(max_abs_err=max(s["max_abs_err"] for s in sites),
                 ms=sum(s["ms"] for s in sites),
-                plain_ms=sum(s["plain_ms"] for s in sites), calls=sites)
+                plain_ms=sum(s["plain_ms"] for s in sites),
+                bound_ms=sum(s["bound_ms"] for s in sites),
+                bound_by=max(sites, key=lambda s: s["bound_ms"])["bound_by"],
+                library_ms=None if None in lib else sum(lib), calls=sites)
+
+
+def merge_results(parts):
+    """Per-kernel results of several parts of one path (the bands of a
+    frame) as one: the call sites of every part in order."""
+    names = {}
+    for part in parts:
+        for name, res in part.items():
+            names.setdefault(name, []).extend(res["calls"])
+    return {name: _sites(calls) for name, calls in names.items()}
 
 
 def phase_sample_blocks(tag, calls, n_sites):
@@ -214,11 +318,11 @@ def phase_sample_blocks(tag, calls, n_sites):
         ms = cuda_ms(lambda: L.sample_blocks([key], stride, take), reps=50)
         plain_ms = cuda_ms(lambda: L.sample_blocks_plain(key, stride, take),
                            reps=50)
-        site = (f"{key.shape[0]:,} int32 keys, stride {stride}, take {take} "
-                f"-> {got.shape[0]:,} samples")
-        sites.append(dict(site=site, max_abs_err=0.0, ms=ms,
-                          plain_ms=plain_ms))
-        lines.append(f"{site}: exact match; kernel {ms:.4f} ms, plain "
+        label = (f"{key.shape[0]:,} int32 keys, stride {stride}, take "
+                 f"{take} -> {got.shape[0]:,} samples")
+        # The function reads only the sampled words.
+        sites.append(site(label, 0.0, ms, plain_ms, 2 * nbytes(got), 0))
+        lines.append(f"{label}: exact match; kernel {ms:.4f} ms, plain "
                      f"{plain_ms:.4f} ms")
     print(f"{tag} K3 sample_blocks: " + "; ".join(lines))
     return _sites(sites)
@@ -271,14 +375,17 @@ def phase_rowsort(tag, calls, also_no_cut):
                                                    c, shift)
             return n_live.sum() - (k != S.DEAD).sum()
         plain_ms = cuda_ms(plain, reps=5)
-        if c is not None:
-            sites.append(dict(site=f"{key.shape[0]:,} slots, keep {keep}, "
-                              f"cut", max_abs_err=0.0, ms=ms,
-                              plain_ms=plain_ms))
+        stages = row_len.bit_length() * (row_len.bit_length() - 1) // 2
+        form = site(f"{key.shape[0]:,} slots, keep {keep}, {label}", 0.0, ms,
+                    plain_ms, nbytes(key, val, c, ok, ov, live),
+                    ok.shape[1] * (row_len // 2) * stages * CMPX_OPS)
+        if c is not None:           # the form the path launches
+            sites.append(form)
         lines.append(f"{label}: dropped {int(dropped):,}, live "
                      f"{int(live.sum()):,}, multisets "
                      f"{'below the boundary key' if boundary_only else 'all live'}"
-                     f" equal, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+                     f" equal, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                     f"bound {form['bound_ms']:.3f} ms ({form['bound_by']})")
     print(f"{tag} K2 rowsort_compact: {key.shape[0]:,} slots, row_len "
           f"{row_len}, keep {keep}, {ok.shape[1]:,} rows, cut table "
           f"{cut.shape[0]} tiles; " + "; ".join(lines))
@@ -321,8 +428,16 @@ def phase_composite(tag, calls_first, calls_at=None):
             f"P={kx.shape[2]}, {int(counts.sum()):,} records, identity "
             f"carry: rows 0-3 max |d| {d03:.3e}, T max rel {rel:.3e}, "
             f"selection equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    sites = [dict(site=f"pass 1, T={rec.shape[0]}, M={rec.shape[2]}",
-                  max_abs_err=e1, ms=ms, plain_ms=plain_ms)]
+    def k1_site(label, err, t_ms, t_plain, recs, cnt, tiles, extra_bytes=0):
+        # The records the counts name, the pixel coordinates, and the carry
+        # in and out of the `tiles` tiles composited.
+        n_rec, pix = int(cnt.sum()), kx.shape[2]
+        moved = (n_rec * recs.shape[1] * 4 + nbytes(cnt)
+                 + tiles * pix * 4 * (2 + 8 + 8) + extra_bytes)
+        return site(label, err, t_ms, t_plain, moved,
+                    n_rec * pix * PAIR_TEST_OPS)
+    sites = [k1_site(f"pass 1, T={rec.shape[0]}, M={rec.shape[2]}", e1, ms,
+                     plain_ms, rec, counts, rec.shape[0])]
     if calls_at is None:
         print(line)
         return _sites(sites)
@@ -351,8 +466,10 @@ def phase_composite(tag, calls_first, calls_at=None):
           f"{d03s:.3e}, T max rel {rels:.3e}, deepening selection equal; "
           f"kernel {at_ms:.3f} ms, plain {at_plain_ms:.3f} ms (each with a "
           f"carry copy)")
-    sites.append(dict(site=f"deepening pass, {sel.shape[0]} tiles",
-                      max_abs_err=e2, ms=at_ms, plain_ms=at_plain_ms))
+    # The timed call also copies the (T, 8, P) carry once.
+    sites.append(k1_site(f"deepening pass, {sel.shape[0]} tiles", e2, at_ms,
+                         at_plain_ms, rec_s, cnt_s, sel.shape[0],
+                         nbytes(sel) + 2 * nbytes(carry_f)))
     return _sites(sites)
 
 
@@ -364,7 +481,14 @@ def _pair_multiset(binning):
     return torch.sort(t << 32 | s).values
 
 
-def phase_small_frame(dev, converged):
+def phase_small_frame(dev, converged, tag=None, w=W_SMALL, h=H_SMALL,
+                      comp_tol=None, **overrides):
+    """A 20K-splat frame on the card (kernels) against the CPU (plain
+    versions) under auto_render_config(..., converged=converged,
+    **overrides): the binning of one projection, the composite of one
+    binning (max |d| within comp_tol, by default 1e-5 for the head and 1e-4
+    with the tail), the frame from params. Returns the card's (binning,
+    image, aux)."""
     import dataclasses
 
     import torch
@@ -375,15 +499,17 @@ def phase_small_frame(dev, converged):
     from fourdgs_torch.scenes.cube import (CUBE_CAMERA, build_cube_scene,
                                            converged_cube_scene)
 
-    tag = "(h)" if converged else "(e)"
-    cfg = auto_render_config(N_SMALL, W_SMALL, H_SMALL, converged=converged)
+    tag = tag or ("(h)" if converged else "(e)")
+    cfg = auto_render_config(N_SMALL, w, h, converged=converged,
+                             **overrides)
     params = build_cube_scene(N_SMALL, seed=1, device=dev)
     if converged:
         params = converged_cube_scene(params)
     params_cpu = {k: v.cpu() for k, v in params.items()}
-    cam = Camera.create(**CUBE_CAMERA, width=W_SMALL, height=H_SMALL,
+    cam = Camera.create(**CUBE_CAMERA, width=w, height=h,
                         device=dev)
-    cam_cpu = Camera.create(**CUBE_CAMERA, width=W_SMALL, height=H_SMALL)
+    cam_cpu = Camera.create(**CUBE_CAMERA, width=w, height=h,
+                            device="cpu")
 
     # Binning of one projection on both devices.
     proj_cpu = TP.project_params4d(params_cpu, cam_cpu, 0.0)
@@ -393,15 +519,20 @@ def phase_small_frame(dev, converged):
                   compact_keep_cols=cfg.sort_compact_keep_cols,
                   big_splat_budget=cfg.big_splat_budget,
                   big_splat_keep_cols=cfg.big_splat_keep_cols,
+                  pallas_sort=cfg.sort_backend == "pallas",
                   pallas_compact=True, compact_row_len=cfg.compact_row_len,
                   depth_prune_cap=cfg.depth_prune_cap,
                   depth_prune_safety=cfg.depth_prune_safety,
                   head_cap=cfg.max_splats_per_tile if converged else 0)
-    b_cpu = TT.bin_splats(proj_cpu, pm[0, 0], pm[1, 1], W_SMALL, H_SMALL,
+    ny, nx = TT.tile_grid(w, h, cfg.tile_h, cfg.tile_w)
+    if ny * nx >= TT.TILE_LIMIT:
+        # A banded image: compare the binning of its first band.
+        bin_kw["tile_row_band"] = (0, TT.TILE_LIMIT // nx)
+    b_cpu = TT.bin_splats(proj_cpu, pm[0, 0], pm[1, 1], w, h,
                           **bin_kw)
     proj_gpu = proj_cpu.to(dev)
     b_gpu = TT.bin_splats(proj_gpu, pm[0, 0].to(dev), pm[1, 1].to(dev),
-                          W_SMALL, H_SMALL, **bin_kw)
+                          w, h, **bin_kw)
     fields = ["tile_start", "overflowed", "compact_dropped", "prune_underkeep",
               "prune_cut", "tile_pruned", "big_ids"]
     if converged:
@@ -413,15 +544,17 @@ def phase_small_frame(dev, converged):
           f"{tag} per-tile pair multisets differ between card and CPU")
 
     # Composite (and tail) of ONE binning (the card's) on both devices.
+    band = bin_kw.get("tile_row_band")
+    n_tiles = (band[1] if band else ny) * nx
+
     def composite(proj, binning, device, p00, p11):
-        px, py, _ = TT.tile_pixel_ndc(W_SMALL, H_SMALL, cfg.tile_h,
+        px, py, _ = TT.tile_pixel_ndc(w, h, cfg.tile_h,
                                       cfg.tile_w, device=device)
         tiles, resid = TP._composite_pallas_progressive(
-            proj, binning, px, py, p00, p11,
+            proj, binning, px[:n_tiles], py[:n_tiles], p00, p11,
             torch.tensor(cfg.background, device=device), cfg,
-            image_size=(W_SMALL, H_SMALL))
-        return TT.assemble_image(tiles, W_SMALL, H_SMALL, cfg.tile_h,
-                                 cfg.tile_w), float(resid.max())
+            image_size=(w, h), tile_row_band=band)
+        return tiles, float(resid.max())
     b_moved = TT.TileBinning(**{
         f.name: None if getattr(b_gpu, f.name) is None
         else getattr(b_gpu, f.name).cpu()
@@ -432,7 +565,7 @@ def phase_small_frame(dev, converged):
     comp_err = float((img_k.cpu() - img_p).abs().max())
     # The tail's atomic sums and the card's exp / log1p round apart from the
     # CPU's in the last bits; 1e-5 holds for the exact head alone.
-    comp_tol = 1e-4 if converged else 1e-5
+    comp_tol = comp_tol or (1e-4 if converged else 1e-5)
     check(comp_err <= comp_tol and resid_k == resid_p,
           f"{tag} composite of one binning: max |d| {comp_err:.3e} > "
           f"{comp_tol:g} or resid {resid_k} vs {resid_p}")
@@ -443,7 +576,7 @@ def phase_small_frame(dev, converged):
     img_c, aux_c = TP.render_params4d_packed(params_cpu, cam_cpu, 0.0,
                                              cfg=cfg, return_aux=True)
     img_g = img_g.cpu()
-    check(tuple(img_g.shape) == (H_SMALL, W_SMALL, 4)
+    check(tuple(img_g.shape) == (h, w, 4)
           and bool(torch.isfinite(img_g).all()), f"{tag} bad card image")
     for k in ("overflowed", "compact_dropped", "prune_underkeep",
               "live_pairs", "max_tile_pairs"):
@@ -459,7 +592,9 @@ def phase_small_frame(dev, converged):
           f"{tag} frame: mean |d| {mean_err:.3e}, share > 1e-3 {frac:.4f}")
     covered = float((img_c[..., :3].sum(-1) > 0.01).float().mean())
     print(f"{tag} small frame{' (converged)' if converged else ''} "
-          f"{N_SMALL:,} splats {W_SMALL}x{H_SMALL}: binning of one "
+          f"{N_SMALL:,} splats {w}x{h}"
+          f"{', ' + json.dumps(overrides) if overrides else ''}"
+          f"{', first band ' + str(band) if band else ''}: binning of one "
           f"projection equal (tile_start, counters, cut"
           f"{', head_counts' if converged else ''}, pair multisets; "
           f"{int(b_cpu.tile_start[-1]):,} live pairs); composite "
@@ -469,11 +604,18 @@ def phase_small_frame(dev, converged):
           f"{mean_err:.3e}, max |d| {float(err.max()):.3e}, share > 1e-3 "
           f"{frac:.5f} (tied pairs blend in sort order); covered share "
           f"{covered:.3f}")
+    return b_gpu, img_g, aux_g
 
 
-def phase_converged_kernels(captured):
-    """K4-K7 at every call site of one converged 10M frame, against their
-    plain versions on the card."""
+def tail_slots(meta, budget_lo, budget):
+    """Pair slots the tail kernels must walk: per splat, its tile span
+    (meta row 5, 0 for a dead splat) within the budget window."""
+    return int((meta[5].clamp(max=budget) - budget_lo).clamp(min=0).sum())
+
+
+def phase_converged_kernels(captured, tag="(g)"):
+    """K4-K7 at every call site of one converged frame (or of one band of
+    it), against their plain versions on the card."""
     import torch
     import torch.nn.functional as F
     from fourdgs_torch.ops import pack_cuda as PK
@@ -490,34 +632,43 @@ def phase_converged_kernels(captured):
                                            pad_to)
     got, want = PK.pack_record_fields(*args), k4_plain()
     torch.cuda.synchronize()
-    check(torch.equal(got, want), "(g) K4 pack_record_fields differs from "
-          "plain")
+    check(torch.equal(got, want), f"{tag} K4 pack_record_fields differs "
+          f"from plain")
     ms = cuda_ms(lambda: PK.pack_record_fields(*args), 20)
     plain_ms = cuda_ms(k4_plain, 5)
-    site = f"{rows[0].shape[0]:,} -> 10 x {pad_to:,}"
-    results["K4 pack_record_fields"] = _sites([dict(
-        site=site, max_abs_err=0.0, ms=ms, plain_ms=plain_ms)])
-    print(f"(g) K4 pack_record_fields: {site}, exact; kernel {ms:.4f} ms, "
+    label = f"{rows[0].shape[0]:,} -> 10 x {pad_to:,}"
+    results["K4 pack_record_fields"] = _sites([site(
+        label, 0.0, ms, plain_ms, nbytes(*rows, got), 0)])
+    print(f"{tag} K4 pack_record_fields: {label}, exact; kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms")
 
     # K5: the tail meta matrix.
     (args, _), = captured["pack_cuda.pack_meta_rows"]
     got, want = PK.pack_meta_rows(*args), PK.pack_meta_rows_plain(*args)
     torch.cuda.synchronize()
-    check(torch.equal(got, want), "(g) K5 pack_meta_rows differs from plain")
+    check(torch.equal(got, want),
+          f"{tag} K5 pack_meta_rows differs from plain")
     ms = cuda_ms(lambda: PK.pack_meta_rows(*args), 20)
     plain_ms = cuda_ms(lambda: PK.pack_meta_rows_plain(*args), 5)
-    site = f"6 x {args[-1]:,}"
-    results["K5 pack_meta_rows"] = _sites([dict(
-        site=site, max_abs_err=0.0, ms=ms, plain_ms=plain_ms)])
-    print(f"(g) K5 pack_meta_rows: {site}, exact; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
+    # The one PyTorch call nearest to it stacks six finished rows (the span
+    # made beforehand, outside the timing).
+    alive, tx0, tx1, ty0, ty1, dbits = args[:6]
+    span = torch.where(alive, (tx1 - tx0 + 1) * (ty1 - ty0 + 1), 0)
+    lib_ms = cuda_ms(lambda: torch.stack([tx0, tx1, ty0, ty1, dbits, span]),
+                     20)
+    label = f"6 x {args[-1]:,}"
+    results["K5 pack_meta_rows"] = _sites([site(
+        label, 0.0, ms, plain_ms, nbytes(*args[:6], got), 0, lib_ms)])
+    print(f"{tag} K5 pack_meta_rows: {label}, exact; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.stack of six finished rows "
+          f"{lib_ms:.4f} ms")
 
     # K6: the main and the big-tier stream, then the main meta at a chunk
     # of 1024 (two sub-blocks, no int32 wrap of the depth sum), where the
     # bands and the slot masks must come out non-trivial.
     calls = captured["tail_cuda.tail_prepass"]
-    check(len(calls) == 2, f"(g) K6: {len(calls)} calls in one frame, want 2")
+    check(len(calls) == 2,
+          f"{tag} K6: {len(calls)} calls in one frame, want 2")
     (meta_main, cuts_main, _, budget_main), kw_main = calls[0]
     probe = ((meta_main, cuts_main, 1024, budget_main), kw_main)
     sites, lines = [], []
@@ -534,32 +685,33 @@ def phase_converged_kernels(captured):
         got, want = TL.tail_prepass(*args, **kw), k6_plain()
         torch.cuda.synchronize()
         for g, w, what in zip(got, want, ("band", "rect", "slot mask")):
-            check(torch.equal(g, w), f"(g) K6 {label}: {what} differs from "
+            check(torch.equal(g, w), f"{tag} K6 {label}: {what} differs from "
                   f"plain")
         band, rect, mask = got
         bands = torch.bincount(band, minlength=kw["k_bands"]).tolist()
         n_mask = int((mask != 0).sum())
         if label.startswith("main at"):
             check(sum(b > 0 for b in bands) > 1 and n_mask > 0,
-                  f"(g) K6 {label}: trivial output, chunks per band {bands}, "
+                  f"{tag} K6 {label}: trivial output, chunks per band {bands}, "
                   f"{n_mask} non-zero slot masks")
         ms = cuda_ms(lambda: TL.tail_prepass(*args, **kw), 20)
         plain_ms = cuda_ms(k6_plain, 5)
-        site = (f"{label}: {meta.shape[1] // chunk:,} chunks of {chunk}, "
-                f"budget ({budget_lo}, {budget}]")
+        where = (f"{label}: {meta.shape[1] // chunk:,} chunks of {chunk}, "
+                 f"budget ({budget_lo}, {budget}]")
         if not label.startswith("main at"):
-            sites.append(dict(site=site, max_abs_err=0.0, ms=ms,
-                              plain_ms=plain_ms))
-        lines.append(f"{site}: exact, chunks per band {bands}, {n_mask:,} "
+            sites.append(site(where, 0.0, ms, plain_ms,
+                              nbytes(meta, cuts, *got), 0))
+        lines.append(f"{where}: exact, chunks per band {bands}, {n_mask:,} "
                      f"non-zero slot masks, window passes per chunk max "
                      f"{int((rect[:, 2] * rect[:, 3]).max())}; kernel "
                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
     results["K6 tail_prepass"] = _sites(sites)
-    print("(g) K6 tail_prepass: " + "; ".join(lines))
+    print(f"{tag} K6 tail_prepass: " + "; ".join(lines))
 
     # K7: the main stream, then the big-tier stream.
     calls = captured["tail_cuda.tail_accumulate"]
-    check(len(calls) == 2, f"(g) K7: {len(calls)} calls in one frame, want 2")
+    check(len(calls) == 2,
+          f"{tag} K7: {len(calls)} calls in one frame, want 2")
     sites, lines = [], []
     for label, (args, kw) in zip(("main", "big"), calls):
         fields, meta, band, rect, cut, params_row = args
@@ -577,25 +729,29 @@ def phase_converged_kernels(captured):
         torch.cuda.synchronize()
         d = (got - want).abs()
         bad = d > K7_ATOL + K7_RTOL * want.abs()
-        check(not bool(bad.any()), f"(g) K7 {label} stream: {int(bad.sum())} "
+        check(not bool(bad.any()), f"{tag} K7 {label} stream: {int(bad.sum())} "
               f"entries outside {K7_RTOL:g} rel + {K7_ATOL:g}, max |d| "
               f"{float(d.max()):.3e}")
         check(label == "big" or float(want.abs().sum()) > 0,
-              f"(g) K7 {label}: nothing accumulated")
+              f"{tag} K7 {label}: nothing accumulated")
         nz = want != 0
         rel = float((d / want.abs().clamp(min=1e-30))[nz].max()) \
             if bool(nz.any()) else 0.0
         ms = cuda_ms(lambda: TL.tail_accumulate(*args, **kw), 10)
         plain_ms = cuda_ms(k7_plain, 2, warmup=1)
-        site = (f"{label}: {npts:,} splats, chunk {plain_kw['chunk']}, "
-                f"budget ({plain_kw['budget_lo']}, {plain_kw['budget']}]")
-        sites.append(dict(site=site, max_abs_err=float(d.max()), ms=ms,
-                          plain_ms=plain_ms))
-        lines.append(f"{site}: max |d| {float(d.max()):.3e}, max rel "
+        where = (f"{label}: {npts:,} splats, chunk {plain_kw['chunk']}, "
+                 f"budget ({plain_kw['budget_lo']}, {plain_kw['budget']}]")
+        sites.append(site(
+            where, float(d.max()), ms, plain_ms,
+            nbytes(fields, meta, band, rect, cut, params_row,
+                   kw.get("slot_mask"), got),
+            tail_slots(meta, plain_kw["budget_lo"], plain_kw["budget"])
+            * kw["s_cy"] * kw["s_cx"] * PAIR_TEST_OPS))
+        lines.append(f"{where}: max |d| {float(d.max()):.3e}, max rel "
                      f"{rel:.3e}, |acc| max {float(want.abs().max()):.3f}; "
                      f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
     results["K7 tail_accumulate"] = _sites(sites)
-    print(f"(g) K7 tail_accumulate (tolerance {K7_RTOL:g} rel + {K7_ATOL:g}): "
+    print(f"{tag} K7 tail_accumulate (tolerance {K7_RTOL:g} rel + {K7_ATOL:g}): "
           + "; ".join(lines))
     return results
 
@@ -604,7 +760,7 @@ def phase_full_frame(tag, params, camera, cfg, kernels, expect, timed):
     """Launch counts of one frame through the entry point a user calls
     (every count set to 0 just before, read just after), then `timed`
     frames. `expect` maps a kernel name to its launches per frame, or to
-    None for "at least one". Returns (launches, aux)."""
+    None for "at least one". Returns (launches, aux, median ms, image)."""
     import torch
     from fourdgs_torch.render import pipeline as TP
 
@@ -619,7 +775,8 @@ def phase_full_frame(tag, params, camera, cfg, kernels, expect, timed):
         check(launches[name] > 0 if n is None else launches[name] == n,
               f"{tag} {name}: {launches[name]} launches per frame, want "
               f"{'> 0' if n is None else n}")
-    check(tuple(img.shape) == (H_FULL, W_FULL, 4)
+    w, h = camera.width, camera.height
+    check(tuple(img.shape) == (h, w, 4)
           and bool(torch.isfinite(img).all()), f"{tag} full frame not finite")
     torch.cuda.reset_peak_memory_stats(dev)
     times = []
@@ -635,7 +792,8 @@ def phase_full_frame(tag, params, camera, cfg, kernels, expect, timed):
     aux = {k: float(v) for k, v in aux.items()}
     mean_rgb = float(img[..., :3].mean())
     print(f"{tag} full frame {params['px'].shape[0]:,} splats "
-          f"{W_FULL}x{H_FULL}, {cfg.tail_mode=}: median {med:.2f} ms "
+          f"{w}x{h}, {cfg.tail_mode=}, {cfg.sort_backend=}: median "
+          f"{med:.2f} ms "
           f"({1e3 / med:.2f} fps) over {timed} frames "
           f"[{', '.join(f'{t:.2f}' for t in times)}]; aux "
           f"{json.dumps(aux)}; mean rgb {mean_rgb:.4f}; launches per frame "
@@ -649,7 +807,7 @@ def phase_full_frame(tag, params, camera, cfg, kernels, expect, timed):
     check(all(aux[k] == 0 for k in lost), f"{tag} full frame lost pairs: "
           f"{aux}")
     check(0.01 < mean_rgb < 1.0, f"{tag} full frame mean rgb {mean_rgb}")
-    return launches, aux
+    return launches, aux, med, img
 
 
 def _field_err(got, want, dim):
@@ -693,12 +851,18 @@ def phase_backward_kernels(tag, calls_c, calls_t):
               f"{rel:.3e} of a field's max |d| > {BWD_TOL:g}")
         ms = cuda_ms(k8, reps=10)
         plain_ms = cuda_ms(plain, reps=2, warmup=1)
-        site = (f"{'deepening pass' if sel is not None else 'pass 1'}, "
-                f"T={records.shape[0]}, M={records.shape[2]}, "
-                f"P={kx.shape[2]}, {int(counts.sum()):,} records")
-        sites.append(dict(site=site, max_abs_err=err, ms=ms,
-                          plain_ms=plain_ms))
-        lines.append(f"{site}: {rel:.3e} of max |d|; kernel {ms:.3f} ms, "
+        where = (f"{'deepening pass' if sel is not None else 'pass 1'}, "
+                 f"T={records.shape[0]}, M={records.shape[2]}, "
+                 f"P={kx.shape[2]}, {int(counts.sum()):,} records")
+        # The named records read and their cotangents written, the pixel
+        # coordinates, and the carry, output and cotangent of each tile.
+        n_rec, tiles, pix = int(counts.sum()), records.shape[0], kx.shape[2]
+        sites.append(site(
+            where, err, ms, plain_ms,
+            2 * n_rec * records.shape[1] * 4 + nbytes(counts, sel)
+            + tiles * pix * 4 * (2 + 8 + 8 + 8),
+            n_rec * pix * PAIR_TEST_OPS))
+        lines.append(f"{where}: {rel:.3e} of max |d|; kernel {ms:.3f} ms, "
                      f"plain {plain_ms:.3f} ms")
     results["K8 composite_bwd"] = _sites(sites)
     print(f"{tag} K8 composite_bwd (tolerance {BWD_TOL:g} of each field's "
@@ -730,12 +894,15 @@ def phase_backward_kernels(tag, calls_c, calls_t):
               f"|d| > {BWD_TOL:g}")
         ms = cuda_ms(k9, reps=10)
         plain_ms = cuda_ms(plain, reps=2, warmup=1)
-        site = (f"{label}: {meta.shape[1]:,} splats, chunk "
-                f"{plain_kw['chunk']}, budget ({plain_kw['budget_lo']}, "
-                f"{plain_kw['budget']}]")
-        sites.append(dict(site=site, max_abs_err=err, ms=ms,
-                          plain_ms=plain_ms))
-        lines.append(f"{site}: {rel:.3e} of max |d|; kernel {ms:.3f} ms, "
+        where = (f"{label}: {meta.shape[1]:,} splats, chunk "
+                 f"{plain_kw['chunk']}, budget ({plain_kw['budget_lo']}, "
+                 f"{plain_kw['budget']}]")
+        sites.append(site(
+            where, err, ms, plain_ms,
+            nbytes(fields, meta, band, cut, params_row, d_acc, mask, got),
+            tail_slots(meta, plain_kw["budget_lo"], plain_kw["budget"])
+            * kw["s_cy"] * kw["s_cx"] * PAIR_TEST_OPS))
+        lines.append(f"{where}: {rel:.3e} of max |d|; kernel {ms:.3f} ms, "
                      f"plain {plain_ms:.3f} ms")
     results["K9 tail_accumulate_bwd"] = _sites(sites)
     print(f"{tag} K9 tail_accumulate_bwd (tolerance {BWD_TOL:g} of each "
@@ -781,7 +948,8 @@ def phase_small_grads(dev, converged, kernels):
     params_cpu = {k: v.cpu() for k, v in params.items()}
     cam = Camera.create(**CUBE_CAMERA, width=W_SMALL, height=H_SMALL,
                         device=dev)
-    cam_cpu = Camera.create(**CUBE_CAMERA, width=W_SMALL, height=H_SMALL)
+    cam_cpu = Camera.create(**CUBE_CAMERA, width=W_SMALL, height=H_SMALL,
+                            device="cpu")
     wts_cpu = torch.rand((H_SMALL, W_SMALL, 3),
                          generator=torch.Generator().manual_seed(3)) * 2 - 1
     pm = cam_cpu.proj_matrix()
@@ -951,6 +1119,328 @@ def phase_grad_step(params, camera, cfg, kernels, expect, timed):
                           peak_gib=peak)
 
 
+def _same_pairs(k1, v1, k2, v2, run=None):
+    """Equal (key, value) multisets over the whole arrays or, with `run`,
+    within every run of that many elements."""
+    import torch
+
+    def pairs(k, v):
+        x = (k.long() << 32) | (v.long() & 0xFFFFFFFF)
+        return torch.sort(x.reshape(-1, run) if run else x, dim=-1).values
+    return torch.equal(pairs(k1, v1), pairs(k2, v2))
+
+
+def _net_ms(kernel, args, reps):
+    """Time of an in-place kernel on fresh copies of its (key, value)
+    arrays, net of the copies."""
+    key, val = args[:2]
+
+    def run():
+        kernel(key.clone(), val.clone(), *args[2:])
+
+    def copies():
+        key.clone(), val.clone()
+    return max(0.0, cuda_ms(run, reps) - cuda_ms(copies, reps))
+
+
+def phase_sort_kernels(captured):
+    """(m): K10 and K11-K13 against their plain versions at the inputs of
+    one kernel-sorted 10M frame, and the whole merge against torch.sort."""
+    import torch
+    from fourdgs_torch.ops import lookup_cuda as L
+    from fourdgs_torch.ops import sort_checks as SC
+    from fourdgs_torch.ops import sort_cuda as S
+    from fourdgs_torch.render import tiles as TT
+
+    results = {}
+    # K10: the standalone cut.
+    check(len(captured["tiles.apply_cutkeys"]) == 1, "(m) K10: not one call")
+    (key, cut), _ = captured["tiles.apply_cutkeys"][0]
+    got, want = L.apply_cutkeys(key, cut), L.apply_cutkeys_plain(key, cut)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "(m) K10 apply_cutkeys differs from plain")
+    live_in, live_out = int((key != S.DEAD).sum()), int((got != S.DEAD).sum())
+    check(0 < live_out < live_in, f"(m) K10 cut nothing: {live_in:,} -> "
+          f"{live_out:,}")
+    ms = cuda_ms(lambda: L.apply_cutkeys(key, cut), 20)
+    plain_ms = cuda_ms(lambda: L.apply_cutkeys_plain(key, cut), 5)
+    label = f"{key.shape[0]:,} keys, {cut.shape[0]} tiles"
+    results["K10 apply_cutkeys"] = _sites([site(
+        label, 0.0, ms, plain_ms, nbytes(key, cut, got), 0)])
+    print(f"(m) K10 apply_cutkeys: {label}, {live_in:,} live -> "
+          f"{live_out:,}: exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    del got, want
+
+    # The row sort that compacts the slots (plain PyTorch, as the
+    # reference's is plain XLA), on its own.
+    calls = [c for c in captured["tiles.compact_pairs"]
+             if c[1].get("alternating")]
+    check(len(calls) == 1, f"(m) compact_pairs: {len(calls)} alternating "
+          f"calls in one frame")
+    c_args, c_kw = calls[0]
+    k2, v2, dropped = TT.compact_pairs(*c_args, **c_kw)
+    torch.cuda.synchronize()
+    check(tuple(k2.shape) == (MERGE_ROWS, MERGE_KEEP) and int(dropped) == 0,
+          f"(m) compact_pairs gave {tuple(k2.shape)} rows, dropped "
+          f"{int(dropped)} (want {MERGE_ROWS} x {MERGE_KEEP}, 0)")
+    compact_ms = cuda_ms(lambda: TT.compact_pairs(*c_args, **c_kw), 3,
+                         warmup=1)
+    row_live = (k2 != S.DEAD).sum(1)
+    print(f"(m) compact_pairs (torch.sort of {MERGE_ROWS:,} strided rows of "
+          f"{-(-c_args[0].shape[0] // MERGE_ROWS):,} slots, keep "
+          f"{MERGE_KEEP}, odd "
+          f"rows reversed): {compact_ms:.3f} ms; live per row mean "
+          f"{float(row_live.float().mean()):.1f}, max {int(row_live.max())}")
+    del k2, v2
+
+    # The whole merge, in both row-direction forms, against torch.sort.
+    (k2, v2), m_kw = captured["tiles.merge_sorted_rows"][0]
+    check(m_kw.get("rows_alternating") is True,
+          "(m) merge_sorted_rows: the frame did not hand it alternating rows")
+    n = S.merged_rows(*k2.shape) * k2.shape[1]
+
+    def library():
+        ks, order = torch.sort(k2.reshape(-1))
+        return ks, v2.reshape(-1)[order]
+    wk, wv = S.merge_sorted_rows_plain(k2, v2)
+    asc_k, asc_v = k2.clone(), v2.clone()
+    asc_k[1::2], asc_v[1::2] = k2[1::2].flip(1), v2[1::2].flip(1)
+    forms = ((True, k2, v2), (False, asc_k, asc_v))
+    whole = {}
+    for alt, rk, rv in forms:
+        gk, gv = S.merge_sorted_rows(rk, rv, rows_alternating=alt)
+        torch.cuda.synchronize()
+        what = f"(m) merge_sorted_rows (rows_alternating={alt})"
+        check(torch.equal(gk, wk), f"{what}: keys differ from torch.sort")
+        check(_same_pairs(gk, gv, wk, wv), f"{what}: (key, value) multisets "
+              f"differ")
+        check(bool(SC.is_sorted(gk)[0]), f"{what}: not sorted")
+        check(int((gk != S.DEAD).sum()) == int((rk != S.DEAD).sum()),
+              f"{what}: live count not conserved")
+        whole[alt] = cuda_ms(lambda: S.merge_sorted_rows(
+            rk, rv, rows_alternating=alt), 10)
+    lib_ms = cuda_ms(library, 10)
+    steps = S.merge_schedule(n, S.MERGE_BLOCK)
+    n_cross = sum(st[0] == "cross" for st in steps)
+    print(f"(m) merge_sorted_rows: {k2.shape[0]:,} rows x {k2.shape[1]} = "
+          f"{n:,} pairs, {int((k2 != S.DEAD).sum()):,} live: keys equal "
+          f"torch.sort, (key, value) multisets equal, sorted, live count "
+          f"conserved, in both row forms; 1 + {n_cross} + "
+          f"{len(steps) - n_cross} launches {whole[True]:.4f} ms "
+          f"(all-ascending rows {whole[False]:.4f} ms); torch.sort + gather "
+          f"{lib_ms:.4f} ms")
+    del asc_k, asc_v, gk, gv, wk, wv
+
+    # K11 at its one call.
+    check(len(captured["sort_cuda.merge_tree"]) == 1, "(m) K11: not one call")
+    t_args, _ = captured["sort_cuda.merge_tree"][0]
+    t_key, t_val, c, block, alt = t_args
+    gk, gv = S.merge_tree(*t_args)
+    pk, pv = S.merge_tree_plain(*t_args)
+    torch.cuda.synchronize()
+    check(torch.equal(gk, pk), "(m) K11 merge_tree: keys differ from plain")
+    check(_same_pairs(gk, gv, pk, pv, run=block), "(m) K11 merge_tree: a "
+          "block's (key, value) multiset differs from plain")
+    ms = cuda_ms(lambda: S.merge_tree(*t_args), 20)
+    plain_ms = cuda_ms(lambda: S.merge_tree_plain(*t_args), 5)
+    levels = range(c.bit_length(), block.bit_length())    # log2(run_out)
+    label = f"{n:,} pairs, rows of {c} -> runs of {block:,}"
+    results["K11 merge_tree"] = _sites([site(
+        label, 0.0, ms, plain_ms, 2 * nbytes(t_key, t_val),
+        n // 2 * sum(levels) * CMPX_OPS)])
+    print(f"(m) K11 merge_tree: {label} ({sum(levels)} stages in shared "
+          f"memory), keys exact, blocks' multisets equal; kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms")
+    del gk, gv, pk, pv
+
+    # K12 at every call (plain swaps strictly too, so values are exact).
+    sites, worst = [], None
+    calls = captured["sort_cuda.merge_cross_stage"]
+    check(len(calls) == n_cross, f"(m) K12: {len(calls)} calls, the schedule "
+          f"has {n_cross}")
+    for args, _ in calls:
+        key, val, d, run_out = args
+        gk, gv = S.merge_cross_stage(key.clone(), val.clone(), d, run_out)
+        pk, pv = S.merge_cross_stage_plain(key, val, d, run_out)
+        torch.cuda.synchronize()
+        check(torch.equal(gk, pk) and torch.equal(gv, pv),
+              f"(m) K12 merge_cross_stage (d {d}, run {run_out}) differs "
+              f"from plain")
+        ms = _net_ms(S.merge_cross_stage, args, 10)
+        plain_ms = cuda_ms(lambda: S.merge_cross_stage_plain(*args), 3)
+        sites.append(site(f"d {d:,}, run {run_out:,}", 0.0, ms, plain_ms,
+                          2 * nbytes(key, val), n // 2 * CMPX_OPS))
+        if worst is None or ms > worst[0]:
+            worst = (ms, d, run_out)
+    k12 = results["K12 merge_cross_stage"] = _sites(sites)
+    first = sites[0]
+    far = sites[max(range(len(calls)), key=lambda i: calls[i][0][2])]
+    print(f"(m) K12 merge_cross_stage: {len(sites)} calls, each exact "
+          f"against plain (keys and values); first ({first['site']}) "
+          f"{first['ms']:.4f} ms, largest distance ({far['site']}) "
+          f"{far['ms']:.4f} ms, slowest {worst[0]:.4f} ms (d {worst[1]:,}); "
+          f"all {k12['ms']:.4f} ms, plain {k12['plain_ms']:.4f} ms")
+
+    # K13 at every call.
+    sites = []
+    calls = captured["sort_cuda.merge_finish"]
+    check(len(calls) == len(steps) - n_cross, f"(m) K13: {len(calls)} calls")
+    for args, _ in calls:
+        key, val, run_out, block = args
+        gk, gv = S.merge_finish(key.clone(), val.clone(), run_out, block)
+        pk, pv = S.merge_finish_plain(key, val, block, run_out)
+        torch.cuda.synchronize()
+        check(torch.equal(gk, pk), f"(m) K13 merge_finish (run {run_out}): "
+              f"keys differ from plain")
+        check(_same_pairs(gk, gv, pk, pv, run=block), f"(m) K13 merge_finish "
+              f"(run {run_out}): a block's multiset differs from plain")
+        ms = _net_ms(S.merge_finish, args, 10)
+        plain_ms = cuda_ms(lambda: S.merge_finish_plain(key, val, block,
+                                                        run_out), 3)
+        sites.append(site(f"run {run_out:,}", 0.0, ms, plain_ms,
+                          2 * nbytes(key, val),
+                          n // 2 * (block.bit_length() - 1) * CMPX_OPS))
+    results["K13 merge_finish"] = _sites(sites)
+    print(f"(m) K13 merge_finish: {len(sites)} calls "
+          f"({block.bit_length() - 1} stages in shared memory each), keys "
+          f"exact, blocks' multisets equal; "
+          f"{', '.join(format(x['ms'], '.4f') for x in sites)} ms, all "
+          f"{results['K13 merge_finish']['ms']:.4f} ms, plain "
+          f"{results['K13 merge_finish']['plain_ms']:.4f} ms")
+    # The whole function's numbers ride on K11's entry.
+    results["K11 merge_tree"]["merge_sorted_rows"] = dict(
+        ms=whole[True], all_ascending_ms=whole[False], library_ms=lib_ms,
+        library="torch.sort of the keys + gather of the values",
+        compact_pairs_ms=compact_ms)
+    for name in ("K11 merge_tree", "K12 merge_cross_stage",
+                 "K13 merge_finish"):
+        # One PyTorch call computes the whole merge, none a part of it.
+        results[name]["library_ms"] = None
+    return results, dict(merge_ms=whole[True], library_ms=lib_ms,
+                         compact_pairs_ms=compact_ms)
+
+
+def phase_sorted_small_frame(dev, default):
+    """(n): the 20K-splat converged frame under sort_backend="pallas" on
+    the card against the CPU, and on the card against the default sort
+    backend (`default`: phase (h)'s binning, image and aux)."""
+    import torch
+    b_def, img_def, aux_def = default
+    b_srt, img_srt, aux_srt = phase_small_frame(
+        dev, converged=True, tag="(n)", sort_backend="pallas",
+        sort_compact_keep_cols=4096)
+    for name in ("tile_start", "overflowed", "compact_dropped",
+                 "prune_underkeep", "prune_cut", "tile_pruned", "big_ids",
+                 "head_counts"):
+        check(torch.equal(getattr(b_srt, name), getattr(b_def, name)),
+              f"(n) binning field {name} differs between the sort backends")
+    live = int(b_def.tile_start[-1])
+    check(torch.equal(b_srt.pair_tile[:live], b_def.pair_tile[:live]),
+          "(n) sorted keys' tile ids differ over the live prefix")
+    check(torch.equal(_pair_multiset(b_srt), _pair_multiset(b_def)),
+          "(n) per-tile pair multisets differ between the sort backends")
+    for k in aux_def:
+        check(float(aux_srt[k]) == float(aux_def[k]), f"(n) aux {k}: "
+              f"{float(aux_srt[k])} vs default {float(aux_def[k])}")
+    err = (img_srt - img_def).abs().amax(dim=-1)
+    mean_err, frac = float(err.mean()), float((err > 1e-3).float().mean())
+    check(mean_err < 1e-4 and frac < 0.01, f"(n) against the default sort "
+          f"backend: mean |d| {mean_err:.3e}, share > 1e-3 {frac:.4f}")
+    print(f"(n) against the default sort backend on the card: tile_start, "
+          f"cut, head_counts and counters equal, tile ids of the "
+          f"{live:,} live pairs equal, per-tile pair multisets equal; merged "
+          f"arrays hold {b_srt.pair_splat.shape[0]:,} slots (default "
+          f"{b_def.pair_splat.shape[0]:,}); image mean |d| {mean_err:.3e}, "
+          f"share > 1e-3 {frac:.5f}")
+
+
+def band_slice(captured, b):
+    """The calls of band `b` out of the captured calls of a two-band
+    converged frame (per band: one call of each wrapper, two of the tail's
+    prepass and accumulate)."""
+    two = ("tail_cuda.tail_prepass", "tail_cuda.tail_accumulate")
+    return {name: calls[2 * b:2 * b + 2] if name in two else calls[b:b + 1]
+            for name, calls in captured.items()}
+
+
+def phase_seam(img, tile_h, seam_tile_rows):
+    """(p): the image rows on both sides of a band seam differ from the mean
+    of their neighbours by no more than rows at the other tile-row
+    boundaries do (the reference's test_band_seams_consistent criterion,
+    held against the rest of the image)."""
+    rows = img[..., :3].mean(dim=(1, 2)).cpu()
+    jump = (rows[1:-1] - 0.5 * (rows[:-2] + rows[2:])).abs()
+    check(bool((jump < 0.05 + 0.25 * (rows[:-2] + rows[2:])).all()),
+          "(p) a row differs from its neighbours by more than 0.05 + half "
+          "their mean")
+    at = {r: float(jump[r * tile_h - 2:r * tile_h + 1].max())
+          for r in range(1, img.shape[0] // tile_h)}
+    seam = max(at[r] for r in seam_tile_rows)
+    other = max(v for r, v in at.items() if r not in seam_tile_rows)
+    check(seam <= other, f"(p) rows at the band seam jump by {seam:.3e}, "
+          f"rows at other tile-row boundaries by at most {other:.3e}")
+    return seam, other
+
+
+def phase_pack_rows(dev, kernels):
+    """(q): pack_rows of ten float32 rows of the converged scene's length
+    against torch.stack, and its backward (K14) against the cotangent's
+    rows. Returns (results, launches)."""
+    import torch
+    from fourdgs_torch.ops import pack_cuda as PK
+    from fourdgs_torch.scenes.cube import CONVERGED_PAD
+
+    n = -(-N_FULL // CONVERGED_PAD) * CONVERGED_PAD
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = [torch.randn(n, device=dev, generator=gen).requires_grad_(True)
+            for _ in range(10)]
+    cot = torch.randn((10, n), device=dev, generator=gen)
+    for k in kernels.values():
+        k.launches = 0
+    out = PK.pack_rows(rows, n)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    check(launches["K5 pack_rows"] == 1 and launches["K14 unpack_rows"] == 1,
+          f"(q) launches {launches}")
+    detached = [r.detach() for r in rows]
+    check(torch.equal(out.detach(), torch.stack(detached)),
+          "(q) pack_rows differs from torch.stack")
+    check(all(torch.equal(r.grad, cot[i]) for i, r in enumerate(rows)),
+          "(q) a row's gradient differs from its row of the cotangent")
+    # A padded call, against the plain version.
+    short = [r[:n - 1000] for r in detached[:3]]
+    check(torch.equal(PK.pack_rows(short, n), PK.pack_rows_plain(short, n)),
+          "(q) padded pack_rows differs from plain")
+    results = {}
+    ms = cuda_ms(lambda: PK.pack_rows(detached, n), 20)
+    plain_ms = cuda_ms(lambda: PK.pack_rows_plain(detached, n), 5)
+    lib_ms = cuda_ms(lambda: torch.stack(detached), 20)
+    label = f"10 x {n:,} float32"
+    results["K5 pack_rows"] = _sites([site(
+        label, 0.0, ms, plain_ms, 2 * nbytes(cot), 0, lib_ms)])
+    line = (f"(q) pack_rows {label}: forward exact against torch.stack; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.stack "
+            f"{lib_ms:.4f} ms")
+    got = PK.unpack_rows(cot, n)
+    want = PK.unpack_rows_plain(cot, n)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "(q) K14 unpack_rows differs from plain")
+    ms = cuda_ms(lambda: PK.unpack_rows(cot, n), 20)
+    # The plain version returns views; its copy is what moves the bytes.
+    plain_ms = cuda_ms(lambda: [w.clone() for w in
+                                PK.unpack_rows_plain(cot, n)], 5)
+    lib_ms = cuda_ms(lambda: cot[:, :n].clone(), 20)
+    results["K14 unpack_rows"] = _sites([site(
+        label, 0.0, ms, plain_ms, 2 * nbytes(cot), 0, lib_ms)])
+    print(f"{line}; backward launches K14 once, gradients equal the "
+          f"cotangent's rows; K14 {ms:.4f} ms, plain (a copy of each row "
+          f"view) {plain_ms:.4f} ms, one copy of the (10, n) cotangent "
+          f"{lib_ms:.4f} ms")
+    return results, launches
+
+
 def build_kernels(kernels):
     """Build every kernel: one nvcc per source file, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -989,7 +1479,19 @@ def main() -> int:
                "K6 tail_prepass": tail_cuda.TAIL_PREPASS,
                "K7 tail_accumulate": tail_cuda.TAIL_ACCUMULATE,
                "K8 composite_bwd": composite_cuda.COMPOSITE_BWD,
-               "K9 tail_accumulate_bwd": tail_cuda.TAIL_ACCUMULATE_BWD}
+               "K9 tail_accumulate_bwd": tail_cuda.TAIL_ACCUMULATE_BWD,
+               "K10 apply_cutkeys": lookup_cuda.APPLY_CUTKEYS,
+               "K11 merge_tree": sort_cuda.MERGE_TREE,
+               "K12 merge_cross_stage": sort_cuda.MERGE_CROSS_STAGE,
+               "K13 merge_finish": sort_cuda.MERGE_FINISH,
+               "K5 pack_rows": pack_cuda.PACK_ROWS,
+               "K14 unpack_rows": pack_cuda.UNPACK_ROWS}
+    # Launches per frame of each path; a kernel not named launches never.
+    never = dict.fromkeys(kernels, 0)
+    converged_frame = dict(never, **{
+        "K1 composite": 1, "K2 rowsort_compact": 1, "K3 sample_blocks": 2,
+        "K4 pack_record_fields": 1, "K5 pack_meta_rows": 1,
+        "K6 tail_prepass": 2, "K7 tail_accumulate": 2})
 
     # (a) environment and builds.
     kind = torch.cuda.get_device_name(0)
@@ -1034,11 +1536,8 @@ def main() -> int:
     # (f) the full frame through the entry point a user calls.
     launches = {"non-converged": phase_full_frame(
         "(f)", params, camera, cfg, kernels,
-        {"K1 composite": None, "K2 rowsort_compact": 1,
-         "K3 sample_blocks": 1, "K4 pack_record_fields": 0,
-         "K5 pack_meta_rows": 0, "K6 tail_prepass": 0,
-         "K7 tail_accumulate": 0, "K8 composite_bwd": 0,
-         "K9 tail_accumulate_bwd": 0}, TIMED_FRAMES)[0]}
+        dict(never, **{"K1 composite": None, "K2 rowsort_compact": 1,
+                       "K3 sample_blocks": 1}), TIMED_FRAMES)[0]}
 
     # Converged path.
     cfg = auto_render_config(N_FULL, W_FULL, H_FULL)
@@ -1070,16 +1569,12 @@ def main() -> int:
     del captured
     torch.cuda.empty_cache()
     # (h) card against CPU on a small converged frame.
-    phase_small_frame(dev, converged=True)
+    small_default = phase_small_frame(dev, converged=True)
     torch.cuda.empty_cache()
     # (i) the full converged frame.
-    launches["converged"] = phase_full_frame(
-        "(i)", params, camera, cfg, kernels,
-        {"K1 composite": 1, "K2 rowsort_compact": 1, "K3 sample_blocks": 2,
-         "K4 pack_record_fields": 1, "K5 pack_meta_rows": 1,
-         "K6 tail_prepass": 2, "K7 tail_accumulate": 2,
-         "K8 composite_bwd": 0, "K9 tail_accumulate_bwd": 0},
-        TIMED_FRAMES_CONVERGED)[0]
+    launches["converged"], _, med_default, _ = phase_full_frame(
+        "(i)", params, camera, cfg, kernels, converged_frame,
+        TIMED_FRAMES_CONVERGED)
     torch.cuda.empty_cache()
 
     # Training.
@@ -1108,10 +1603,111 @@ def main() -> int:
     # (l) the full converged grad step.
     launches[step], grad_step = phase_grad_step(
         params, camera, cfg, kernels,
-        {"K1 composite": 1, "K2 rowsort_compact": 1, "K3 sample_blocks": 2,
-         "K4 pack_record_fields": 1, "K5 pack_meta_rows": 1,
-         "K6 tail_prepass": 2, "K7 tail_accumulate": 2,
-         "K8 composite_bwd": 1, "K9 tail_accumulate_bwd": 2}, TIMED_STEPS)
+        dict(converged_frame, **{"K8 composite_bwd": 1,
+                                 "K9 tail_accumulate_bwd": 2}), TIMED_STEPS)
+    torch.cuda.empty_cache()
+
+    # The kernel-sorted frame: sort_backend="pallas" with a power-of-two
+    # keep. The prune runs as its own pass (K10), the slots are compacted by
+    # a row sort into 4,096 alternating rows, and K11-K13 merge the rows.
+    cfg_sorted = auto_render_config(N_FULL, W_FULL, H_FULL,
+                                    sort_backend="pallas",
+                                    sort_compact_keep_cols=MERGE_KEEP)
+    t0 = time.time()
+    captured = capture_kernel_inputs(
+        params, camera, cfg_sorted,
+        [(TT, "apply_cutkeys"), (TT, "compact_pairs"),
+         (TT, "merge_sorted_rows"), (sort_cuda, "merge_tree"),
+         (sort_cuda, "merge_cross_stage"), (sort_cuda, "merge_finish")])
+    torch.cuda.synchronize()
+    print(f"    kernel-sorted capture frame {time.time() - t0:.1f} s")
+    # (m) K10-K13 at that frame's inputs.
+    sorted_path = "converged, kernel-sorted"
+    results[sorted_path], merge = phase_sort_kernels(captured)
+    del captured
+    torch.cuda.empty_cache()
+    # (n) the 20K frame under the merge kernels: card against CPU, and
+    # against the default sort backend.
+    phase_sorted_small_frame(dev, small_default)
+    torch.cuda.empty_cache()
+    # (o) the full kernel-sorted frame.
+    steps = sort_cuda.merge_schedule(
+        sort_cuda.merged_rows(MERGE_ROWS, MERGE_KEEP) * MERGE_KEEP,
+        sort_cuda.MERGE_BLOCK)
+    n_cross = sum(st[0] == "cross" for st in steps)
+    launches[sorted_path], _, med_sorted, _ = phase_full_frame(
+        "(o)", params, camera, cfg_sorted, kernels,
+        dict(converged_frame, **{
+            "K2 rowsort_compact": 0, "K10 apply_cutkeys": 1,
+            "K11 merge_tree": 1, "K12 merge_cross_stage": n_cross,
+            "K13 merge_finish": len(steps) - n_cross}), TIMED_FRAMES_NEW)
+    print(f"(o) kernel-sorted frame median {med_sorted:.2f} ms beside the "
+          f"default converged frame's {med_default:.2f} ms of phase (i); of "
+          f"it the compacting row sort (plain torch.sort) "
+          f"{merge['compact_pairs_ms']:.2f} ms, K11-K13 "
+          f"{merge['merge_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+
+    # The 4K frame: 135 x 30 = 4,050 tiles of 16x128 in two bands of tile
+    # rows, each band through the whole converged path.
+    cfg_4k = auto_render_config(N_FULL, W_4K, H_4K)
+    camera_4k = Camera.create(**CUBE_CAMERA, width=W_4K, height=H_4K,
+                              device=dev)
+    ny_4k, nx_4k = TT.tile_grid(W_4K, H_4K, cfg_4k.tile_h, cfg_4k.tile_w)
+    rows_per_band = TT.TILE_LIMIT // nx_4k
+    check(ny_4k * nx_4k >= TT.TILE_LIMIT and -(-ny_4k // rows_per_band) == 2,
+          f"(p) {ny_4k} x {nx_4k} tiles are not two bands")
+    t0 = time.time()
+    captured = capture_kernel_inputs(
+        params, camera_4k, cfg_4k,
+        [(TT, "sample_blocks"), (TT, "rowsort_compact"),
+         (TP, "composite_records"), (TP, "sample_blocks"),
+         (pack_cuda, "pack_record_fields"), (pack_cuda, "pack_meta_rows"),
+         (tail_cuda, "tail_prepass"), (tail_cuda, "tail_accumulate")])
+    torch.cuda.synchronize()
+    print(f"    4K capture frame {time.time() - t0:.1f} s")
+    # (p) every kernel of the path at each band's inputs.
+    bands = []
+    for b in range(2):
+        tag = f"(p) band {b}"
+        cap = band_slice(captured, b)
+        part = {
+            "K3 sample_blocks": phase_sample_blocks(
+                tag, cap["tiles.sample_blocks"]
+                + cap["pipeline.sample_blocks"], 2),
+            "K2 rowsort_compact": phase_rowsort(
+                tag, cap["tiles.rowsort_compact"], also_no_cut=False),
+            "K1 composite": phase_composite(
+                tag, cap["pipeline.composite_records"]),
+        }
+        part.update(phase_converged_kernels(cap, tag))
+        bands.append(part)
+    path_4k = "converged 4K, two bands"
+    results[path_4k] = merge_results(bands)
+    del captured, cap, bands
+    torch.cuda.empty_cache()
+    # (p) the full 4K frame: launch counts twice phase (i)'s, the counters,
+    # time and peak memory, and the rows at the band seam.
+    launches[path_4k], _, _, img_4k = phase_full_frame(
+        "(p)", params, camera_4k, cfg_4k, kernels,
+        {k: 2 * v for k, v in converged_frame.items()}, TIMED_FRAMES_NEW)
+    seam, other = phase_seam(img_4k, cfg_4k.tile_h, [rows_per_band])
+    print(f"(p) band seam at image row {rows_per_band * cfg_4k.tile_h}: rows "
+          f"there differ from their neighbours' mean by at most {seam:.3e}, "
+          f"rows at the other tile-row boundaries by at most {other:.3e}")
+    del img_4k
+    torch.cuda.empty_cache()
+    # (p) a 20K-splat frame of 4,224 tiles of 8x64 (three bands), both
+    # modes, card against CPU.
+    for converged in (False, True):
+        phase_small_frame(dev, converged, tag="(p)", w=W_BAND, h=H_BAND,
+                          comp_tol=EDGE_TOL, tile_h=8, tile_w=64,
+                          tail_block=(8, 8))
+    torch.cuda.empty_cache()
+
+    # (q) pack_rows and its backward, the public row pack.
+    pack_path = "pack_rows and its backward"
+    results[pack_path], launches[pack_path] = phase_pack_rows(dev, kernels)
 
     print(json.dumps({"kernels": [
         dict(name=f"{name} [{path}]", path=path, route="cuda",

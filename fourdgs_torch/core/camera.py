@@ -12,6 +12,8 @@ import dataclasses
 
 import torch
 
+from fourdgs_torch import resolve_device
+
 
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
@@ -62,8 +64,11 @@ class Camera:
     @staticmethod
     def create(position=(0.0, 0.0, 0.0), orientation=(0.0, 0.0, -1.0),
                up=(0.0, 1.0, 0.0), fov_deg=60.0, near=0.1, far=5000.0,
-               width=800, height=800, device="cpu") -> "Camera":
-        """Reference defaults (fov 60 deg, near 0.1, far 5000)."""
+               width=800, height=800, device=None) -> "Camera":
+        """Reference defaults (fov 60 deg, near 0.1, far 5000); on
+        `device`, by default the card (fourdgs_torch.default_device)."""
+        device = resolve_device(device)
+
         def f32(x):
             return torch.as_tensor(x, dtype=torch.float32, device=device)
         return Camera(position=f32(position), orientation=f32(orientation),

@@ -1,0 +1,232 @@
+// Bitonic merge of sorted rows into one sorted (key, value) array: kernels
+// K11, K12 and K13 of the port.
+//
+// They replace the three kernels of fourdgs/ops/sort_pallas.py
+// `merge_sorted_rows` (sort_pallas.py:465-511): `_tree_level_kernel`
+// (K11), `_cross_stage_kernel` (K12) and `_finish_level_kernel` (K13). The
+// input is a flat array of `total` = R * C int32 (key, value) pairs, total
+// and C powers of two, in which every run of C elements (a row) is sorted,
+// DEAD keys (INT32_MAX) last in sort order; values ride along, ties are
+// unordered. Runs are merged pairwise, level by level, as bitonic
+// sequences: at a level that makes runs of `run_out` elements, run m comes
+// out descending iff m is odd, except that the run of the final size
+// (run_out == total) is ascending, so two neighbouring runs always form a
+// bitonic sequence and nothing is ever reversed between levels. A level is
+// the stages d = run_out/2 ... 1; a stage compare-exchanges (i, i + d) for
+// every i with (i & d) == 0, strictly (equal keys never move).
+//
+//   K11 fourdgs_merge_tree: a block loads B consecutive elements (B / C
+//     whole rows) into shared memory, reading every odd row back to front
+//     when the caller's rows are all ascending, runs every level from runs
+//     of C up to runs of B there, and writes its run once. One launch where
+//     the TPU version pays one call per level.
+//   K12 fourdgs_merge_cross_stage: one stage at a distance d >= B over the
+//     whole array in device memory, one thread a pair, in place (a thread
+//     owns both elements of its pair).
+//   K13 fourdgs_merge_finish: a block loads B contiguous elements and runs
+//     the stages d = B/2 ... 1 of one level in shared memory, in place.
+//
+// Bound on the H100: the arrays are small (16.8 MB at the 2^21 pairs of the
+// 10M-splat frame, one read and one write in 0.010 ms) and stay in the
+// 50 MB L2 between launches, so neither device memory nor arithmetic binds:
+// the cost is the number of launches (1 + 28 + 7 there) and of
+// shared-memory stages with a block-wide barrier each (60 in K11, 14 per
+// K13). The TPU kernels keep 262,144 elements resident in fast memory; a
+// Hopper block has 227 KB of shared memory, so B is 16,384 pairs (128 KB)
+// and the levels above it go through K12. Design: the simplest network that
+// is right; each thread takes pairs a whole block apart, which is free of
+// bank conflicts for d >= 32. Register-resident last stages and several
+// cross stages in one launch are left to later changes.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlockThreads = 1024;   // K11, K13: threads of a block
+constexpr int kCrossThreads = 256;    // K12
+
+// One stage at distance d over the n elements of a block whose first
+// element has global index `base`. Runs of 2^run_shift elements alternate
+// direction when `alternate` is set.
+__device__ __forceinline__ void shared_stage(int* sk, int* sv, int n, int d,
+                                             long long base, int run_shift,
+                                             bool alternate) {
+  for (int q = threadIdx.x; q < (n >> 1); q += kBlockThreads) {
+    const int lo = ((q & ~(d - 1)) << 1) | (q & (d - 1));
+    const int hi = lo + d;
+    const bool desc = alternate && (((base + lo) >> run_shift) & 1);
+    const int ka = sk[lo];
+    const int kb = sk[hi];
+    if (desc ? (ka < kb) : (kb < ka)) {
+      sk[lo] = kb;
+      sk[hi] = ka;
+      const int va = sv[lo];
+      sv[lo] = sv[hi];
+      sv[hi] = va;
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ int log2_of(long long x) {
+  return 63 - __clzll(x);
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+merge_tree_kernel(const int* __restrict__ key, const int* __restrict__ val,
+                  int* __restrict__ out_key, int* __restrict__ out_val,
+                  long long total, int c, int block, int flip_odd_rows) {
+  extern __shared__ int smem[];
+  int* sk = smem;
+  int* sv = smem + block;
+  const long long base = static_cast<long long>(blockIdx.x) * block;
+  const int c_shift = log2_of(c);
+  for (int e = threadIdx.x; e < block; e += kBlockThreads) {
+    long long src = base + e;
+    if (flip_odd_rows && ((src >> c_shift) & 1)) {
+      const long long col = src & (c - 1);
+      src = src - col + (c - 1 - col);
+    }
+    sk[e] = key[src];
+    sv[e] = val[src];
+  }
+  __syncthreads();
+  for (int half = c; half < block; half <<= 1) {
+    const long long run_out = 2LL * half;
+    const int run_shift = log2_of(run_out);
+    const bool alternate = run_out < total;
+    for (int d = half; d > 0; d >>= 1) {
+      shared_stage(sk, sv, block, d, base, run_shift, alternate);
+    }
+  }
+  for (int e = threadIdx.x; e < block; e += kBlockThreads) {
+    out_key[base + e] = sk[e];
+    out_val[base + e] = sv[e];
+  }
+}
+
+__global__ void __launch_bounds__(kCrossThreads)
+merge_cross_stage_kernel(int* __restrict__ key, int* __restrict__ val,
+                         long long pairs, long long d, int run_shift,
+                         int alternate) {
+  const long long p =
+      static_cast<long long>(blockIdx.x) * kCrossThreads + threadIdx.x;
+  if (p >= pairs) return;
+  const long long lo = ((p & ~(d - 1)) << 1) | (p & (d - 1));
+  const long long hi = lo + d;
+  const bool desc = alternate && ((lo >> run_shift) & 1);
+  const int ka = key[lo];
+  const int kb = key[hi];
+  if (desc ? (ka < kb) : (kb < ka)) {
+    key[lo] = kb;
+    key[hi] = ka;
+    const int va = val[lo];
+    val[lo] = val[hi];
+    val[hi] = va;
+  }
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+merge_finish_kernel(int* __restrict__ key, int* __restrict__ val,
+                    long long total, int block, int run_shift,
+                    int alternate) {
+  extern __shared__ int smem[];
+  int* sk = smem;
+  int* sv = smem + block;
+  const long long base = static_cast<long long>(blockIdx.x) * block;
+  for (int e = threadIdx.x; e < block; e += kBlockThreads) {
+    sk[e] = key[base + e];
+    sv[e] = val[base + e];
+  }
+  __syncthreads();
+  for (int d = block >> 1; d > 0; d >>= 1) {
+    shared_stage(sk, sv, block, d, base, run_shift, alternate != 0);
+  }
+  for (int e = threadIdx.x; e < block; e += kBlockThreads) {
+    key[base + e] = sk[e];
+    val[base + e] = sv[e];
+  }
+}
+
+bool pow2(long long x) { return x > 0 && (x & (x - 1)) == 0; }
+
+int host_log2(long long x) {
+  int s = 0;
+  while ((1LL << s) < x) ++s;
+  return s;
+}
+
+// Shared memory of a block of `block` pairs, or 0 when it does not fit.
+size_t block_smem(int block) {
+  const size_t bytes = 2ull * block * sizeof(int);
+  return bytes <= 227 * 1024 ? bytes : 0;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+}
+
+}  // namespace
+
+// key, val -> out_key, out_val: (total,) int32, rows of c elements sorted
+// (ascending, or odd rows descending with rows_alternating); afterwards
+// every run of `block` elements is sorted, odd runs descending unless
+// block == total. total, c, block powers of two, c <= block <= total.
+extern "C" int fourdgs_merge_tree(const void* key, const void* val,
+                                  void* out_key, void* out_val,
+                                  long long total, int c, int block,
+                                  int rows_alternating, void* stream) {
+  const size_t smem = pow2(block) ? block_smem(block) : 0;
+  if (!pow2(total) || !pow2(c) || smem == 0 || c > block || block > total) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = allow_smem(merge_tree_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  merge_tree_kernel<<<static_cast<unsigned>(total / block), kBlockThreads,
+                      smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(key), static_cast<const int*>(val),
+      static_cast<int*>(out_key), static_cast<int*>(out_val), total, c, block,
+      rows_alternating ? 0 : 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One stage at distance d of the level that makes runs of run_out elements,
+// in place. total, d, run_out powers of two, 2 * d <= run_out <= total.
+extern "C" int fourdgs_merge_cross_stage(void* key, void* val,
+                                         long long total, long long d,
+                                         long long run_out, void* stream) {
+  if (!pow2(total) || !pow2(d) || !pow2(run_out) || 2 * d > run_out ||
+      run_out > total) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long pairs = total / 2;
+  const long long blocks = (pairs + kCrossThreads - 1) / kCrossThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  merge_cross_stage_kernel<<<static_cast<unsigned>(blocks), kCrossThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(key), static_cast<int*>(val), pairs, d,
+      host_log2(run_out), run_out < total ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The stages d = block/2 ... 1 of the level that makes runs of run_out
+// elements, in place. Powers of two, block <= run_out <= total.
+extern "C" int fourdgs_merge_finish(void* key, void* val, long long total,
+                                    int block, long long run_out,
+                                    void* stream) {
+  const size_t smem = pow2(block) ? block_smem(block) : 0;
+  if (!pow2(total) || !pow2(run_out) || smem == 0 || block < 2 ||
+      block > run_out || run_out > total) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = allow_smem(merge_finish_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  merge_finish_kernel<<<static_cast<unsigned>(total / block), kBlockThreads,
+                        smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(key), static_cast<int*>(val), total, block,
+      host_log2(run_out), run_out < total ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}

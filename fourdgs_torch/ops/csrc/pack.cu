@@ -1,4 +1,5 @@
-// Operand packing for the converged frame: kernels K4 and K5 of the port.
+// Operand packing for the converged frame: kernels K4, K5 and K14 of the
+// port.
 //
 // K4 `fourdgs_pack_record_fields` replaces fourdgs/ops/pack_pallas.py
 // `_pack_rec_kernel` (called through `pack_record_fields`,
@@ -18,9 +19,22 @@
 // span = alive ? (tx1 - tx0 + 1) * (ty1 - ty0 + 1) : 0 computed here, and
 // every column past n zero (a dead entry: span 0).
 //
+// `fourdgs_pack_rows` is K5's general form, the forward of the public
+// `pack_rows` (pack_pallas.py:195-210): R <= 16 rows of n 4-byte words of
+// one type stacked into (R, pad_to), every column past n zero.
+//
+// K14 `fourdgs_unpack_rows` replaces pack_pallas.py `_unpack_kernel` (the
+// VJP of `pack_rows`, called through `_pack_core_bwd`, pack_pallas.py:75-93):
+// row i of the (R, pad_to) cotangent, first n entries, becomes the i-th
+// row's cotangent. One launch for all R rows rather than R one-row copies:
+// a column's thread reads the R words a stride of pad_to apart and writes
+// one word to each of the R outputs, so every row is read and written
+// coalesced and the launch cost is paid once.
+//
 // Bound on the H100: memory bandwidth; each reads and writes every word
-// once (K4 ~0.8 GB at the 10M-splat frame, K5 ~0.5 GB). Design: one thread
-// per column, each row read and written coalesced. Built with -fmad=false
+// once (K4 ~0.8 GB at the 10M-splat frame, K5 ~0.5 GB, K14 0.8 GB for ten
+// rows of 10M words). Design: one thread per column, each row read and
+// written coalesced. Built with -fmad=false
 // like K1 (there is nothing to contract here; the flag keeps every kernel of
 // the tail's operands rounding alike).
 
@@ -82,6 +96,39 @@ pack_meta_rows_kernel(const unsigned char* __restrict__ alive,
   out[5 * p + i] = span;
 }
 
+constexpr int kMaxRows = 16;
+
+struct WordRows {
+  int* rows[kMaxRows];
+};
+
+__global__ void __launch_bounds__(kThreads)
+pack_rows_kernel(WordRows in, int r, int* __restrict__ out, int n,
+                 int pad_to) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= pad_to) return;
+  const bool valid = i < n;
+  // Unrolled over the most rows, so that every pointer is read from the
+  // kernel's parameters by a constant index (no local copy of the table).
+#pragma unroll
+  for (int f = 0; f < kMaxRows; ++f) {
+    if (f < r) {
+      out[static_cast<long long>(f) * pad_to + i] = valid ? in.rows[f][i] : 0;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+unpack_rows_kernel(const int* __restrict__ d_out, int r, int n, int pad_to,
+                   WordRows out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+#pragma unroll
+  for (int f = 0; f < kMaxRows; ++f) {
+    if (f < r) out.rows[f][i] = d_out[static_cast<long long>(f) * pad_to + i];
+  }
+}
+
 int blocks_for(int pad_to) { return (pad_to + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -118,5 +165,48 @@ extern "C" int fourdgs_pack_meta_rows(const void* alive, const void* tx0,
       static_cast<const int*>(tx0), static_cast<const int*>(tx1),
       static_cast<const int*>(ty0), static_cast<const int*>(ty1),
       static_cast<const int*>(dbits), static_cast<int*>(out), n, pad_to);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows: r <= 16 pointers to (n,) arrays of 4-byte words (the others null);
+// out: (r, pad_to) words.
+extern "C" int fourdgs_pack_rows(
+    const void* r0, const void* r1, const void* r2, const void* r3,
+    const void* r4, const void* r5, const void* r6, const void* r7,
+    const void* r8, const void* r9, const void* r10, const void* r11,
+    const void* r12, const void* r13, const void* r14, const void* r15,
+    int r, void* out, int n, int pad_to, void* stream) {
+  if (r < 1 || r > kMaxRows || n < 0 || pad_to < n || pad_to <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* rows[kMaxRows] = {r0, r1, r2,  r3,  r4,  r5,  r6,  r7,
+                                r8, r9, r10, r11, r12, r13, r14, r15};
+  WordRows in;
+  for (int f = 0; f < kMaxRows; ++f) {
+    in.rows[f] = static_cast<int*>(const_cast<void*>(rows[f]));
+  }
+  pack_rows_kernel<<<blocks_for(pad_to), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      in, r, static_cast<int*>(out), n, pad_to);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// d_out: (r, pad_to) words; outputs: r <= 16 pointers to (n,) arrays.
+extern "C" int fourdgs_unpack_rows(
+    const void* d_out, int r, int n, int pad_to, void* o0, void* o1,
+    void* o2, void* o3, void* o4, void* o5, void* o6, void* o7, void* o8,
+    void* o9, void* o10, void* o11, void* o12, void* o13, void* o14,
+    void* o15, void* stream) {
+  if (r < 1 || r > kMaxRows || n < 0 || pad_to < n || pad_to <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  void* rows[kMaxRows] = {o0, o1, o2,  o3,  o4,  o5,  o6,  o7,
+                          o8, o9, o10, o11, o12, o13, o14, o15};
+  WordRows out;
+  for (int f = 0; f < kMaxRows; ++f) out.rows[f] = static_cast<int*>(rows[f]);
+  unpack_rows_kernel<<<blocks_for(n), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(d_out), r, n, pad_to, out);
   return static_cast<int>(cudaGetLastError());
 }

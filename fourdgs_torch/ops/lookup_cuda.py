@@ -1,8 +1,10 @@
-"""Evenly spaced contiguous-block subsample (port of
-fourdgs/ops/lookup_pallas.py `sample_blocks`).
+"""Evenly spaced contiguous-block subsample and the standalone depth-prune
+cut (port of fourdgs/ops/lookup_pallas.py `sample_blocks` and
+`apply_cutkeys`).
 
-Kernel K3 (`csrc/sample_blocks.cu`) plus its plain PyTorch version. A CPU
-tensor runs the plain version; a CUDA tensor launches the kernel.
+Kernels K3 (`csrc/sample_blocks.cu`) and K10 (`csrc/cutkeys.cu`) plus their
+plain PyTorch versions. A CPU tensor runs the plain version; a CUDA tensor
+launches the kernel.
 """
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ from typing import List, Sequence
 import torch
 
 from fourdgs_torch.ops._build import CudaKernel
+from fourdgs_torch.ops.sort_cuda import CUT_TABLE, DEAD
 
+CUT_SHIFT = 20              # a key's tile id sits above its 20 depth bits
 # Sample blocks start on 8-row granules (the reference's TPU tile height).
 GRANULE_ROWS = 8
 
@@ -21,6 +25,10 @@ SAMPLE_BLOCKS = CudaKernel(
     "sample_blocks.cu", "fourdgs_sample_blocks",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_int])
+APPLY_CUTKEYS = CudaKernel(
+    "cutkeys.cu", "fourdgs_apply_cutkeys",
+    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_void_p])
 
 
 def num_sample_blocks(n: int, stride_rows: int) -> int:
@@ -70,3 +78,35 @@ def sample_blocks(arrs: Sequence[torch.Tensor], stride_rows: int,
                       stream=torch.cuda.current_stream(a.device).cuda_stream)
         outs.append(out)
     return outs
+
+
+def apply_cutkeys_plain(key: torch.Tensor, cut: torch.Tensor) -> torch.Tensor:
+    tbl = torch.cat([cut.to(torch.int32),
+                     cut.new_full((CUT_TABLE - cut.shape[0],), DEAD,
+                                  dtype=torch.int32)])
+    tid = torch.clamp(key >> CUT_SHIFT, 0, CUT_TABLE - 1)
+    return torch.where(key <= tbl[tid.long()], key, DEAD)
+
+
+def apply_cutkeys(key: torch.Tensor, cut: torch.Tensor) -> torch.Tensor:
+    """key (S,) int32 pair keys, cut (T <= 2048,) int32 per-tile cut keys ->
+    the pruned keys (S,): DEAD wherever key > cut[key >> 20]. The table is
+    padded with DEAD, so DEAD keys (tile bits 2047) stay DEAD."""
+    if key.dtype != torch.int32 or key.dim() != 1:
+        raise ValueError(f"key must be (S,) int32, got {tuple(key.shape)} "
+                         f"{key.dtype}")
+    if cut.dtype != torch.int32 or cut.dim() != 1 \
+            or cut.shape[0] > CUT_TABLE or cut.device != key.device:
+        raise ValueError(f"cut must be (T <= {CUT_TABLE},) int32 on the "
+                         f"keys' device, got {tuple(cut.shape)} {cut.dtype} "
+                         f"on {cut.device}")
+    if key.device.type == "cpu":
+        return apply_cutkeys_plain(key, cut)
+    if key.device.type != "cuda":
+        raise ValueError(f"unsupported device {key.device}")
+    key, cut = key.contiguous(), cut.contiguous()
+    out = torch.empty_like(key)
+    if key.shape[0]:
+        APPLY_CUTKEYS(key, key.shape[0], cut, cut.shape[0], out,
+                      stream=torch.cuda.current_stream(key.device).cuda_stream)
+    return out

@@ -1,10 +1,13 @@
-"""Operand packing for the converged frame (port of fourdgs/ops/pack_pallas.py:
-`pack_record_fields` and, fused with the span of `tail_meta`, `pack_rows`).
+"""Operand packing (port of fourdgs/ops/pack_pallas.py): `pack_record_fields`,
+`pack_rows` fused with the span of `tail_meta` (`pack_meta_rows`), and the
+public, differentiable `pack_rows`.
 
-Kernels K4 and K5 (`csrc/pack.cu`) plus their plain PyTorch versions. A CPU
-tensor runs the plain version; a CUDA tensor launches the kernel. The record
-pack is differentiable; its backward is plain PyTorch, as the reference's is
-plain XLA. The meta pack holds integers and has none.
+Kernels K4, K5 (its meta form and its general form) and K14
+(`csrc/pack.cu`) plus their plain PyTorch versions. A CPU tensor runs the
+plain version; a CUDA tensor launches the kernel. The record pack is
+differentiable; its backward is plain PyTorch, as the reference's is plain
+XLA. The meta pack holds integers and has none. `pack_rows` is
+differentiable for float rows; its backward is K14.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from fourdgs_torch.ops._build import CudaKernel
 
 N_META = 6       # tx0, tx1, ty0, ty1, dbits, span
 N_RECORD = 10    # sx, sy, v0x, v0y, il0, il1, r, g, b, a_eff
+MAX_ROWS = 16    # rows one pack_rows call stacks
 _FLAGS = ("-fmad=false",)
 
 PACK_RECORD_FIELDS = CudaKernel(
@@ -27,6 +31,15 @@ PACK_RECORD_FIELDS = CudaKernel(
 PACK_META_ROWS = CudaKernel(
     "pack.cu", "fourdgs_pack_meta_rows",
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2, extra_flags=_FLAGS)
+PACK_ROWS = CudaKernel(
+    "pack.cu", "fourdgs_pack_rows",
+    [ctypes.c_void_p] * MAX_ROWS + [ctypes.c_int, ctypes.c_void_p,
+                                    ctypes.c_int, ctypes.c_int],
+    extra_flags=_FLAGS)
+UNPACK_ROWS = CudaKernel(
+    "pack.cu", "fourdgs_unpack_rows",
+    [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * MAX_ROWS,
+    extra_flags=_FLAGS)
 
 
 def _check_rows(rows: Sequence[torch.Tensor], dtypes, pad_to: int):
@@ -153,3 +166,73 @@ def pack_meta_rows(alive, tx0, tx1, ty0, ty1, dbits,
                    out, n, pad_to,
                    stream=torch.cuda.current_stream(dev).cuda_stream)
     return out
+
+
+def pack_rows_plain(rows: Sequence[torch.Tensor], pad_to: int) -> torch.Tensor:
+    n = rows[0].shape[0]
+    out = rows[0].new_zeros((len(rows), pad_to))
+    out[:, :n] = torch.stack(list(rows))
+    return out
+
+
+def unpack_rows_plain(d_out: torch.Tensor, n: int):
+    """The VJP of pack_rows: row i of the cotangent, first n entries."""
+    return tuple(d_out[:, :n].unbind(0))
+
+
+def unpack_rows(d_out: torch.Tensor, n: int):
+    """K14: the (R, pad_to) cotangent of pack_rows -> the R (n,) row
+    cotangents, as new contiguous tensors."""
+    if d_out.dim() != 2 or not 1 <= d_out.shape[0] <= MAX_ROWS \
+            or not 0 <= n <= d_out.shape[1]:
+        raise ValueError(f"want an (R <= {MAX_ROWS}, pad_to >= {n}) "
+                         f"cotangent, got {tuple(d_out.shape)}")
+    if d_out.device.type == "cpu":
+        return tuple(x.clone() for x in unpack_rows_plain(d_out, n))
+    if d_out.device.type != "cuda":
+        raise ValueError(f"unsupported device {d_out.device}")
+    if d_out.dtype not in (torch.float32, torch.int32):
+        raise ValueError(f"the kernel copies 4-byte words, got {d_out.dtype}")
+    d_out = d_out.contiguous()
+    r, pad_to = d_out.shape
+    outs = [torch.empty(n, dtype=d_out.dtype, device=d_out.device)
+            for _ in range(r)]
+    UNPACK_ROWS(d_out, r, n, pad_to, *outs, *([None] * (MAX_ROWS - r)),
+                stream=torch.cuda.current_stream(d_out.device).cuda_stream)
+    return tuple(outs)
+
+
+class _PackRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pad_to, *rows):
+        ctx.n = rows[0].shape[0]
+        if rows[0].device.type == "cpu":
+            return pack_rows_plain(rows, pad_to)
+        rows = [x.contiguous() for x in rows]
+        out = torch.empty((len(rows), pad_to), dtype=rows[0].dtype,
+                          device=rows[0].device)
+        PACK_ROWS(*rows, *([None] * (MAX_ROWS - len(rows))), len(rows), out,
+                  ctx.n, pad_to,
+                  stream=torch.cuda.current_stream(
+                      rows[0].device).cuda_stream)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        with record_function("fourdgs::pack_bwd"):
+            return (None,) + unpack_rows(d_out, ctx.n)
+
+
+def pack_rows(rows: Sequence[torch.Tensor], pad_to: int) -> torch.Tensor:
+    """Stack R <= 16 same-dtype (N,) float32 or int32 rows into an (R,
+    pad_to) matrix, the columns past N zero. Differentiable in float rows
+    (an autograd Function whose backward is K14, unpack_rows); float64 rows
+    are taken on the CPU only."""
+    rows = tuple(rows)
+    if not 1 <= len(rows) <= MAX_ROWS:
+        raise ValueError(f"want 1 to {MAX_ROWS} rows, got {len(rows)}")
+    dtypes = (torch.float32, torch.int32)
+    if rows[0].device.type == "cpu":
+        dtypes += (torch.float64,)
+    _check_rows(rows, dtypes, pad_to)
+    return _PackRows.apply(pad_to, *rows)

@@ -2,13 +2,17 @@
 fourdgs/render/pipeline.py, quantized-depth branch with the hand-written
 kernels): the exact head with progressive deepening (`tail_mode="off"`) or,
 converged, one head pass plus the streaming banded-OIT tail over every
-other pair (`tail_mode="banded"`).
+other pair (`tail_mode="banded"`). An image of 2047 tiles or more (4K at
+16x128 tiles) renders as bands of tile rows, each band through the whole
+path with band-relative tile ids. `sort_backend="pallas"` sorts the pairs
+with the merge kernels (K11-K13) and applies the depth prune as its own pass
+(K10).
 
 `RenderConfig` keeps every field name and default of the reference, so a
 reference config converts with `RenderConfig(**dataclasses.asdict(cfg))`.
 `backend="pallas"` names the hand-written kernels (here CUDA). What is not
 ported yet raises NotImplementedError: the XLA-backend composite, the exact
-sort, tile-row banding and the tail's within-band weighting knobs.
+sort and the tail's within-band weighting knobs.
 
 The frame is differentiable with respect to the packed params in both
 modes: the composite (K1/K8), the tail (K7/K9) and the record pack (K4) are
@@ -34,7 +38,8 @@ from fourdgs_torch.ops.composite_cuda import (composite_records,
 from fourdgs_torch.ops.lookup_cuda import sample_blocks
 from fourdgs_torch.ops.sort_cuda import DEAD
 from fourdgs_torch.render.project import Projected, project_components
-from fourdgs_torch.render.tiles import (assemble_image, bin_splats,
+from fourdgs_torch.render.tiles import (TILE_LIMIT, assemble_image,
+                                        bin_splats, clip_to_tile_row_band,
                                         quantized_depth_bits,
                                         splat_tile_bbox, tile_grid,
                                         tile_pixel_ndc)
@@ -105,52 +110,73 @@ def render_projected(proj: Projected, camera: Camera,
     pmat = camera.proj_matrix()
     p00, p11 = pmat[0, 0], pmat[1, 1]
     w, h = camera.width, camera.height
+    # Tile-row banding: the quantized key packs an 11-bit tile id, so an
+    # image of 2047 tiles or more renders as ceil-split bands of tile rows.
+    ny0, nx0 = tile_grid(w, h, cfg.tile_h, cfg.tile_w)
+    if ny0 * nx0 >= TILE_LIMIT:
+        rows_per_band = max(1, TILE_LIMIT // nx0)
+        n_bands = -(-ny0 // rows_per_band)
+    else:
+        rows_per_band, n_bands = ny0, 1
     px, py, _ = tile_pixel_ndc(w, h, cfg.tile_h, cfg.tile_w,
                                device=proj.mx.device)
-    # record_function ranges segment torch.profiler traces by stage.
-    with record_function("fourdgs::bin_sort"):
-        binning = bin_splats(
-            proj, p00, p11, w, h, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-            max_tiles_per_splat=cfg.max_tiles_per_splat,
-            quantized_depth=True,
-            compact_keep_cols=cfg.sort_compact_keep_cols,
-            big_splat_budget=cfg.big_splat_budget,
-            big_splat_keep_cols=cfg.big_splat_keep_cols,
-            pallas_sort=(cfg.sort_backend == "pallas"),
-            pallas_compact=(cfg.compact_backend == "pallas"),
-            compact_row_len=cfg.compact_row_len,
-            depth_prune_cap=cfg.depth_prune_cap,
-            depth_prune_safety=cfg.depth_prune_safety,
-            head_cap=(cfg.max_splats_per_tile
-                      if cfg.tail_mode == "banded" else 0))
     bg = torch.tensor(cfg.background, dtype=proj.mx.dtype,
                       device=proj.mx.device)
-    with record_function("fourdgs::composite"):
-        tiles, resid = _composite_pallas_progressive(
-            proj, binning, px, py, p00, p11, bg, cfg, image_size=(w, h))
+    band_tiles, band_resid, binnings, band_max_pairs = [], [], [], []
+    for b in range(n_bands):
+        lo_row = b * rows_per_band
+        nb = min(rows_per_band, ny0 - lo_row)
+        band = None if n_bands == 1 else (lo_row, nb)
+        # record_function ranges segment torch.profiler traces by stage.
+        with record_function("fourdgs::bin_sort"):
+            binning = bin_splats(
+                proj, p00, p11, w, h, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                max_tiles_per_splat=cfg.max_tiles_per_splat,
+                quantized_depth=True,
+                compact_keep_cols=cfg.sort_compact_keep_cols,
+                big_splat_budget=cfg.big_splat_budget,
+                big_splat_keep_cols=cfg.big_splat_keep_cols,
+                pallas_sort=(cfg.sort_backend == "pallas"),
+                pallas_compact=(cfg.compact_backend == "pallas"),
+                compact_row_len=cfg.compact_row_len,
+                depth_prune_cap=cfg.depth_prune_cap,
+                depth_prune_safety=cfg.depth_prune_safety,
+                head_cap=(cfg.max_splats_per_tile
+                          if cfg.tail_mode == "banded" else 0),
+                tile_row_band=band)
+        with record_function("fourdgs::composite"):
+            tiles, resid = _composite_pallas_progressive(
+                proj, binning, px[lo_row * nx0:(lo_row + nb) * nx0],
+                py[lo_row * nx0:(lo_row + nb) * nx0], p00, p11, bg, cfg,
+                image_size=(w, h), tile_row_band=band)
+        band_tiles.append(tiles)
+        band_resid.append(resid.max())
+        binnings.append(binning)
+        band_max_pairs.append(
+            (binning.tile_start[1:] - binning.tile_start[:-1]).max())
+    tiles = band_tiles[0] if n_bands == 1 else torch.cat(band_tiles)
     img = assemble_image(tiles, w, h, cfg.tile_h, cfg.tile_w)
     if not return_aux:
         return img
-    counts = binning.tile_start[1:] - binning.tile_start[:-1]
     aux: Dict[str, torch.Tensor] = {
-        "overflowed": binning.overflowed,
-        "live_pairs": binning.tile_start[-1],
-        "max_tile_pairs": counts.max(),
+        "overflowed": sum(b.overflowed for b in binnings),
+        "live_pairs": sum(b.tile_start[-1] for b in binnings),
+        "max_tile_pairs": torch.stack(band_max_pairs).max(),
         # Per-pixel bound on truncation error: the remaining transmittance
         # of any tile whose pair list was truncated (0 == exact w.r.t. the
         # per-tile capacity).
-        "resid_transmittance": resid.max(),
+        "resid_transmittance": torch.stack(band_resid).max(),
     }
-    if binning.compact_dropped is not None:
-        aux["compact_dropped"] = binning.compact_dropped
-    if binning.prune_underkeep is not None:
-        aux["prune_underkeep"] = binning.prune_underkeep
+    if binnings[0].compact_dropped is not None:
+        aux["compact_dropped"] = sum(b.compact_dropped for b in binnings)
+    if binnings[0].prune_underkeep is not None:
+        aux["prune_underkeep"] = sum(b.prune_underkeep for b in binnings)
     return img, aux
 
 
 def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
                                   background, cfg: RenderConfig,
-                                  image_size=None):
+                                  image_size=None, tile_row_band=None):
     """Progressive-deepening composite, or head plus banded tail.
 
     Pass 1 composites every tile's nearest `max_splats_per_tile` pairs. Each
@@ -161,7 +187,9 @@ def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
     cut) the head owns exactly binning.head_counts pairs per tile, which
     pass 1 composites whole; the banded tail (`_apply_banded_tail`, needs
     image_size = (w, h)) composites every other pair and there is no
-    deepening. Returns (tiles (T, P, 4), resid (T, P))."""
+    deepening. `binning`, `px` and `py` may be those of one band of tile
+    rows (tile_row_band, handed on to the tail). Returns (tiles (T, P, 4),
+    resid (T, P))."""
     m = cfg.max_splats_per_tile
     t_tiles, p = px.shape
     dev = px.device
@@ -201,7 +229,7 @@ def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
             raise ValueError("tail mode needs image_size=(w, h)")
         with record_function("fourdgs::tail"):
             out = _apply_banded_tail(out, proj, binning, p00, p11, cfg,
-                                     *image_size, rec_all)
+                                     *image_size, rec_all, tile_row_band)
         schedule = ()
     else:
         schedule = cfg.deepening_schedule or (m,) * (cfg.deepening_passes - 1)
@@ -250,17 +278,27 @@ def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
 
 
 def _apply_banded_tail(out, proj: Projected, binning, p00, p11,
-                       cfg: RenderConfig, w: int, h: int, fields):
+                       cfg: RenderConfig, w: int, h: int, fields,
+                       tile_row_band=None):
     """Composite every pair beyond the per-tile head cut into the (T, 8, P)
     head carry (before the background); `fields` is the (10, >=N) record
     matrix the head gathered from. Global depth-band cuts from a
     sample of the live depth bits, then the per-chunk prepass (K6) and the
     tail accumulate (K7) over the main stream and then over the big-tier
     ids, then fold the bands, upsample and blend under the head's
-    transmittance. Returns the updated carry."""
+    transmittance. With tile_row_band = (ty_base, ny) the carry, the cut
+    table and the tail grid are those of one band of tile rows. Returns the
+    updated carry."""
     ny, nx = tile_grid(w, h, cfg.tile_h, cfg.tile_w)
     alive, tx0, tx1, ty0, ty1 = splat_tile_bbox(proj, p00, p11, w, h,
                                                 cfg.tile_h, cfg.tile_w)
+    ty_base = 0
+    if tile_row_band is not None:
+        # The binning's clip, so the tail's tile ids match the band-relative
+        # cut table.
+        ty_base = tile_row_band[0]
+        alive, ty0, ty1, ny = clip_to_tile_row_band(alive, ty0, ty1,
+                                                    tile_row_band)
     dbits = quantized_depth_bits(proj.depth)
     cut = binning.prune_cut
     k_bands = cfg.tail_bands
@@ -279,7 +317,7 @@ def _apply_banded_tail(out, proj: Projected, binning, p00, p11,
         raise ValueError(f"tail_block {cfg.tail_block} does not divide the "
                          f"{cfg.tile_h}x{cfg.tile_w} tile")
     params_row = TL.tail_params_row(cfg.tile_h, cfg.tile_w, cfg.tail_block,
-                                    w, h, p00, p11)
+                                    w, h, p00, p11, ty_base)
     if cfg.tail_depth_beta:
         raise NotImplementedError("tail_depth_beta is not ported (ROADMAP.md,"
                                   " deliberately last)")

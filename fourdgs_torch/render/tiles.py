@@ -6,20 +6,28 @@ packs (tile_id << 20) | top-20-bits-of-float(distance), so one sort of the
 keys yields tile-major, front-to-back order, and the per-tile ranges (CSR
 offsets) come from a left bisect of the sorted keys.
 
-The exact (non-quantized) branch, tile-row banding (images of 2047 tiles or
-more), the merge-tree sort and the sharded tile window wait; see ROADMAP.md.
+Images of 2047 tiles or more are binned one band of tile rows at a time
+(`tile_row_band`, driven by render/pipeline.py), each band with
+band-relative tile ids. With `pallas_sort` the compacted rows are stitched
+by the bitonic merge kernels (K11-K13) instead of one global sort, and a
+depth prune that is not fused into the rowsort kernel runs as its own pass
+(K10). The exact (non-quantized) branch and the sharded tile window wait;
+see ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 from torch.profiler import record_function
 
-from fourdgs_torch.ops.lookup_cuda import sample_blocks
-from fourdgs_torch.ops.sort_cuda import DEAD, rowsort_compact
+from fourdgs_torch import resolve_device
+from fourdgs_torch.ops.lookup_cuda import apply_cutkeys, sample_blocks
+from fourdgs_torch.ops.sort_cuda import (DEAD, merge_sorted_rows,
+                                         rowsort_compact)
 from fourdgs_torch.render.project import Projected
 
 QUANT_DEPTH_BITS = 20
@@ -70,11 +78,15 @@ def _sort_kv(key: torch.Tensor, val: torch.Tensor, dim: int = -1):
 
 
 def compact_pairs(key: torch.Tensor, val: torch.Tensor, dead: int,
-                  keep_cols: int, rows: Optional[int] = None):
+                  keep_cols: int, rows: Optional[int] = None,
+                  alternating: bool = False, flat: bool = True):
     """Shrink a mostly-dead pair array: sort `rows` strided logical rows
     (element i of row r is key[i * rows + r]) and keep each row's first
-    keep_cols. Returns flat (key_kept, val_kept, dropped), rows-major;
-    dropped counts live pairs lost to the cap."""
+    keep_cols. Returns (key_kept, val_kept, dropped), rows-major and flat,
+    or (rows, keep_cols) with flat=False; dropped counts live pairs lost to
+    the cap. With `alternating`, odd rows come out reversed (descending),
+    the layout merge_sorted_rows takes without reading rows back to
+    front."""
     s = key.shape[0]
     if rows is None:
         rows = -(-s // COMPACT_ROW_LEN)
@@ -94,7 +106,15 @@ def compact_pairs(key: torch.Tensor, val: torch.Tensor, dead: int,
         dropped = (ks[:, keep_cols:] != dead).sum(dtype=torch.int32)
         ks = ks[:, :keep_cols]
         vs = vs[:, :keep_cols]
-    return ks.reshape(-1), vs.reshape(-1), dropped
+    if alternating and rows > 1:
+        def alt(x):
+            x3 = x.reshape(rows // 2, 2, keep_cols)
+            return torch.stack([x3[:, 0], x3[:, 1].flip(1)],
+                               dim=1).reshape(rows, keep_cols)
+        ks, vs = alt(ks), alt(vs)
+    if flat:
+        return ks.reshape(-1), vs.reshape(-1), dropped
+    return ks, vs, dropped
 
 
 def compact_flag_ids(flag: torch.Tensor, blk: int = 1024,
@@ -125,6 +145,18 @@ def compact_flag_ids(flag: torch.Tensor, blk: int = 1024,
     dropped = dropped + (flag.sum(dtype=torch.int32)
                          - (seg != DEAD).sum(dtype=torch.int32))
     return ids, dropped
+
+
+def clip_to_tile_row_band(alive, ty0, ty1, tile_row_band):
+    """Restrict per-splat tile bboxes to the tile rows [ty_base, ty_base +
+    ny) of a band and re-express them in band coordinates. Returns (alive,
+    ty0, ty1, ny); the binning and the tail share it, so the tail's tile
+    ids match the band-relative cut table."""
+    ty_base, ny = tile_row_band
+    alive = alive & (ty1 >= ty_base) & (ty0 < ty_base + ny)
+    ty0 = torch.clamp(ty0 - ty_base, 0, ny - 1)
+    ty1 = torch.clamp(ty1 - ty_base, 0, ny - 1)
+    return alive, ty0, ty1, ny
 
 
 def splat_tile_bbox(proj: Projected, p00, p11, width: int, height: int,
@@ -199,7 +231,8 @@ def _pair_keys(tids, lives, dbits):
 def quantized_pair_keys(proj: Projected, p00, p11, width: int, height: int,
                         tile_h: int, tile_w: int, max_tiles_per_splat: int,
                         big_splat_budget: int = 0,
-                        big_splat_keep_cols: int = 128):
+                        big_splat_keep_cols: int = 128,
+                        tile_row_band: Optional[Tuple[int, int]] = None):
     """Emit the quantized pair-slot keys, before pruning and sorting.
 
     Returns (key, splat_idx, overflowed, big_ids): (S,) int32 keys (DEAD for
@@ -208,16 +241,21 @@ def quantized_pair_keys(proj: Projected, p00, p11, width: int, height: int,
     big_splat_budget, splats whose bbox spans more than max_tiles_per_splat
     tiles are compacted into a fixed-capacity id list and re-emitted with
     big_splat_budget slots; spans beyond even that, and big splats past the
-    capacity, count into `overflowed`."""
+    capacity, count into `overflowed`. With tile_row_band = (ty_base, ny),
+    only tile rows [ty_base, ty_base + ny) are binned, with tile ids
+    relative to the band."""
     ny, nx = tile_grid(width, height, tile_h, tile_w)
-    num_tiles = ny * nx
-    if num_tiles >= TILE_LIMIT:
-        raise NotImplementedError(
-            f"{num_tiles} tiles: the quantized key holds < {TILE_LIMIT}; "
-            "tile-row banding is not ported yet (ROADMAP.md Queue A, "
-            "item 10)")
     alive, tx0, tx1, ty0, ty1 = splat_tile_bbox(proj, p00, p11, width,
                                                 height, tile_h, tile_w)
+    if tile_row_band is not None:
+        alive, ty0, ty1, ny = clip_to_tile_row_band(alive, ty0, ty1,
+                                                    tile_row_band)
+    num_tiles = ny * nx
+    if num_tiles >= TILE_LIMIT:
+        raise ValueError(
+            f"{num_tiles} tiles in one binning: the quantized key holds "
+            f"fewer than {TILE_LIMIT}; bin the image in tile-row bands "
+            "(tile_row_band, as render_projected does)")
     two_tier = bool(big_splat_budget)
     if two_tier:
         if big_splat_budget <= max_tiles_per_splat:
@@ -274,34 +312,39 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
                compact_row_len: int = 8192,
                depth_prune_cap: int = 0,
                depth_prune_safety: float = 2.0,
-               head_cap: int = 0) -> TileBinning:
+               head_cap: int = 0,
+               tile_row_band: Optional[Tuple[int, int]] = None
+               ) -> TileBinning:
     """Build sorted (tile, splat) pairs, quantized-depth branch.
 
     Pipeline: emit pair keys (quantized_pair_keys); estimate the per-tile
-    depth-prune cut (depth_prune_cutkeys); compact the mostly-dead slot
-    array (the cut fused into the rowsort kernel, with pallas_compact);
-    one unstable global sort; CSR offsets by bisection; with head_cap (tail
-    mode), the post-sort head re-cut.
+    depth-prune cut (depth_prune_cutkeys) and apply it, fused into the
+    rowsort kernel (pallas_compact without pallas_sort) or as its own pass
+    (apply_cutkeys, K10); compact the mostly-dead slot array; sort, with
+    one unstable global sort or, with pallas_sort, by merging the compacted
+    rows (merge_sorted_rows, K11-K13; needs a power-of-two
+    compact_keep_cols >= 256); CSR offsets by bisection; with head_cap
+    (tail mode), the post-sort head re-cut.
+    tile_row_band = (ty_base, ny) bins only that band of tile rows, with
+    band-relative tile ids and tile_start of ny * nx + 1 entries; a single
+    binning holds fewer than 2047 tiles.
     Ties within a (tile, 20-bit depth) bucket order arbitrarily, as in the
     reference.
     """
     if not quantized_depth:
         raise NotImplementedError("the exact-order branch is not ported yet "
                                   "(ROADMAP.md Queue A, item 9)")
-    if pallas_sort:
-        raise NotImplementedError("the merge-tree pair sort (kernels 8-10) "
-                                  "is not ported yet")
     ny, nx = tile_grid(width, height, tile_h, tile_w)
+    if tile_row_band is not None:
+        ny = tile_row_band[1]
     num_tiles = ny * nx
-    fuse_cut = bool(depth_prune_cap and compact_keep_cols and pallas_compact)
-    if depth_prune_cap and not fuse_cut:
-        raise NotImplementedError(
-            "a depth prune without the fused rowsort needs the standalone "
-            "cut kernel (kernel 7), not ported yet")
+    fuse_cut = bool(depth_prune_cap and compact_keep_cols and pallas_compact
+                    and not pallas_sort)
     with record_function("fourdgs::emit"):
         key, splat_idx, overflowed, big_ids = quantized_pair_keys(
             proj, p00, p11, width, height, tile_h, tile_w,
-            max_tiles_per_splat, big_splat_budget, big_splat_keep_cols)
+            max_tiles_per_splat, big_splat_budget, big_splat_keep_cols,
+            tile_row_band)
     dev = key.device
 
     prune_cut = None
@@ -309,18 +352,40 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
         with record_function("fourdgs::depth_prune"):
             prune_cut = depth_prune_cutkeys(key, num_tiles, depth_prune_cap,
                                             safety=depth_prune_safety)
+        if not fuse_cut:
+            with record_function("fourdgs::apply_cutkeys"):
+                key = apply_cutkeys(key, prune_cut)
     compact_dropped = None
-    if compact_keep_cols and pallas_compact:
-        with record_function("fourdgs::rowsort_compact"):
-            ck, cv, compact_dropped = rowsort_compact(
-                key, splat_idx, compact_keep_cols, row_len=compact_row_len,
-                cut=prune_cut, key_shift=QUANT_DEPTH_BITS)
-        key, splat_idx = ck.reshape(-1), cv.reshape(-1)
-    elif compact_keep_cols:
-        key, splat_idx, compact_dropped = compact_pairs(
-            key, splat_idx, DEAD, compact_keep_cols)
-    with record_function("fourdgs::global_sort"):
-        key_s, splat_s = _sort_kv(key, splat_idx)
+    if compact_keep_cols and pallas_sort:
+        # Compact into a power-of-two (rows x keep_cols) grid of
+        # alternating rows, which the merge kernels stitch with no padding
+        # beyond the reference's.
+        if compact_keep_cols & (compact_keep_cols - 1):
+            raise ValueError(f"pallas_sort needs a power-of-two "
+                             f"compact_keep_cols, got {compact_keep_cols}")
+        rows = 1 << max(0, int(round(math.log2(
+            max(1.0, key.shape[0] / COMPACT_ROW_LEN)))))
+        with record_function("fourdgs::compact_pairs"):
+            k2, v2, compact_dropped = compact_pairs(
+                key, splat_idx, DEAD, compact_keep_cols, rows=rows,
+                alternating=True, flat=False)
+        with record_function("fourdgs::merge_sorted_rows"):
+            key_s, splat_s = merge_sorted_rows(k2, v2, rows_alternating=True)
+    else:
+        if compact_keep_cols and pallas_compact:
+            with record_function("fourdgs::rowsort_compact"):
+                ck, cv, compact_dropped = rowsort_compact(
+                    key, splat_idx, compact_keep_cols,
+                    row_len=compact_row_len,
+                    cut=prune_cut if fuse_cut else None,
+                    key_shift=QUANT_DEPTH_BITS)
+            key, splat_idx = ck.reshape(-1), cv.reshape(-1)
+        elif compact_keep_cols:
+            with record_function("fourdgs::compact_pairs"):
+                key, splat_idx, compact_dropped = compact_pairs(
+                    key, splat_idx, DEAD, compact_keep_cols)
+        with record_function("fourdgs::global_sort"):
+            key_s, splat_s = _sort_kv(key, splat_idx)
     tid_s = torch.where(key_s == DEAD, num_tiles, key_s >> QUANT_DEPTH_BITS)
     tile_ids = torch.arange(num_tiles + 1, dtype=torch.int32, device=dev)
     tile_start = searchsorted_i32(key_s, tile_ids << QUANT_DEPTH_BITS)
@@ -391,10 +456,12 @@ def searchsorted_i32(sorted_arr: torch.Tensor,
 
 
 def tile_pixel_ndc(width: int, height: int, tile_h: int, tile_w: int,
-                   device="cpu", dtype=torch.float32):
+                   device=None, dtype=torch.float32):
     """NDC coords of pixel centers for every tile: (px, py) of shape
-    (T, tile_h * tile_w) with T = ny * nx, plus the (ny, nx) grid. Padding
+    (T, tile_h * tile_w) with T = ny * nx, plus the (ny, nx) grid, on
+    `device`, by default the card (fourdgs_torch.default_device). Padding
     tiles on the bottom/right get coordinates too; callers crop."""
+    device = resolve_device(device)
     ny, nx = tile_grid(width, height, tile_h, tile_w)
 
     def ar(k):

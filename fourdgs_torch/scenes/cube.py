@@ -13,6 +13,7 @@ from typing import Dict
 
 import torch
 
+from fourdgs_torch import resolve_device
 from fourdgs_torch.splats.packed import morton_order, pad_packed_params
 
 # bench.py's camera for this scene (bench.py:148-150); width and height are
@@ -24,8 +25,10 @@ CONVERGED_PAD = 16384
 
 
 def build_cube_scene(n: int, seed: int = 0,
-                     device="cpu") -> Dict[str, torch.Tensor]:
-    """Packed (N,) float32 parameter dict on `device`."""
+                     device=None) -> Dict[str, torch.Tensor]:
+    """Packed (N,) float32 parameter dict on `device`, by default the card
+    (fourdgs_torch.default_device)."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def u01():

@@ -14,22 +14,26 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from fourdgs_torch import resolve_device
+
 PARAM4D_FIELDS = ("px", "py", "pz", "pt", "qw", "qx", "qy", "qz",
                   "sx", "sy", "sz", "lifetime", "fade", "vx", "vy", "vz",
                   "cr", "cg", "cb", "ca")
 
 
 def params4d_from_numpy(params_np: Mapping[str, np.ndarray],
-                        device="cpu") -> Dict[str, torch.Tensor]:
+                        device=None) -> Dict[str, torch.Tensor]:
     """The reference's packed parameter dict (numpy arrays) -> the port's
-    tensors on `device`. Checks the field set, dtype float32, 1-D and equal
-    lengths, and raises ValueError on any mismatch."""
+    tensors on `device`, by default the card
+    (fourdgs_torch.default_device). Checks the field set, dtype float32, 1-D
+    and equal lengths, and raises ValueError on any mismatch."""
     fields = set(params_np)
     if fields != set(PARAM4D_FIELDS):
         missing = sorted(set(PARAM4D_FIELDS) - fields)
         extra = sorted(fields - set(PARAM4D_FIELDS))
         raise ValueError(f"param fields differ: missing {missing}, "
                          f"unexpected {extra}")
+    device = resolve_device(device)
     n = None
     out = {}
     for k in PARAM4D_FIELDS:

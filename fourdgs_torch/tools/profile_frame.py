@@ -1,6 +1,7 @@
 """Stage profile of the flagship frame on one card.
 
-    python3 -m fourdgs_torch.tools.profile_frame [--grad] [--json PATH]
+    python3 -m fourdgs_torch.tools.profile_frame [--grad]
+        [--sort-backend pallas] [--json PATH]
 
 Renders the headline scene, the 10M-splat cube (`scenes/cube.py`;
 Morton-ordered and dead-padded for the converged path) at 1920x1088 on
@@ -29,6 +30,12 @@ in their backward (`fourdgs::composite_bwd` for K8, `fourdgs::tail_bwd`
 for K9, `fourdgs::pack_bwd`), so `fourdgs::backward` keeps the device time
 of every other backward operation (the projection's chain rule above all).
 
+With --sort-backend pallas both paths sort their pairs with the merge
+kernels (keep 512, a power of two): the binning then shows
+`fourdgs::apply_cutkeys` (K10), `fourdgs::compact_pairs` (the row sort that
+compacts the slots) and `fourdgs::merge_sorted_rows` (K11-K13) in place of
+`fourdgs::rowsort_compact` and `fourdgs::global_sort`.
+
 `profile_path` also runs on the CPU, where it reports host times only.
 """
 
@@ -49,6 +56,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 N_SPLATS, WIDTH, HEIGHT = 10_000_000, 1920, 1088
 WARMUP, TIMED, PROFILED = 3, 10, 5
+MERGE_KEEP = 512       # power-of-two keep of the kernel-sorted frame
 GRAD_T = 0.37          # at t = pt the temporal fields get no gradient
 PREFIX = "fourdgs::"
 FRAME = PREFIX + "frame"
@@ -206,6 +214,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--grad", action="store_true",
                     help="profile grad steps instead of frames")
+    ap.add_argument("--sort-backend", default="xla",
+                    choices=("xla", "pallas"),
+                    help="pallas: sort the pairs with the merge kernels")
     ap.add_argument("--json", default=None,
                     help="also write the results to this file")
     args = ap.parse_args(argv)
@@ -213,10 +224,15 @@ def main(argv=None) -> int:
         print("profile_frame: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    report = dict(grad=args.grad, device=subprocess.run(
+    overrides = {}
+    if args.sort_backend == "pallas":
+        overrides = dict(sort_backend="pallas",
+                         sort_compact_keep_cols=MERGE_KEEP)
+    smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0])
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    report = dict(grad=args.grad, sort_backend=args.sort_backend, device=smi)
     print(report["device"])
     base = build_cube_scene(N_SPLATS, seed=0, device=dev)
     camera = Camera.create(**CUBE_CAMERA, width=WIDTH, height=HEIGHT,
@@ -225,7 +241,7 @@ def main(argv=None) -> int:
         converged = label == "converged"
         params = converged_cube_scene(base) if converged else base
         cfg = auto_render_config(N_SPLATS, WIDTH, HEIGHT,
-                                 converged=converged)
+                                 converged=converged, **overrides)
         res = profile_path(params, camera, cfg, WARMUP, TIMED, PROFILED,
                            grad=args.grad)
         _print_path(f"{label} {'grad step' if args.grad else 'frame'} "

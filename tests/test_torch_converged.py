@@ -50,6 +50,7 @@ from fourdgs_torch.splats import packed as TPK  # noqa: E402
 N, W, H, SCALE, CHUNK = 4000, 256, 128, 0.15, 1024
 CAM = dict(position=(420.0 * SCALE, 300.0 * SCALE, 420.0 * SCALE),
            orientation=(-1.0, -0.7, -1.0), far=5000.0, width=W, height=H)
+TCAM = dict(CAM, device="cpu")      # the port's camera, on the CPU
 BIN_FIELDS = ("pair_splat", "pair_tile", "tile_start", "overflowed",
               "compact_dropped", "prune_underkeep", "tile_pruned",
               "prune_cut", "head_counts", "big_ids")
@@ -206,7 +207,8 @@ def test_composite_and_tail_from_reference_binning(ref):
     cfg = TP.RenderConfig(**dataclasses.asdict(ref["cfg"]))
     binning = TT.TileBinning(**{k: None if v is None else torch.from_numpy(v)
                                 for k, v in ref["binning"].items()})
-    px, py, _ = TT.tile_pixel_ndc(W, H, cfg.tile_h, cfg.tile_w)
+    px, py, _ = TT.tile_pixel_ndc(W, H, cfg.tile_h, cfg.tile_w,
+                                  device="cpu")
     tiles, resid = TP._composite_pallas_progressive(
         _tproj(ref), binning, px, py, torch.tensor(ref["p00"]),
         torch.tensor(ref["p11"]), torch.tensor(cfg.background), cfg,
@@ -221,8 +223,8 @@ def test_composite_and_tail_from_reference_binning(ref):
 
 def test_converged_slice_matches_reference(ref):
     cfg = TP.RenderConfig(**dataclasses.asdict(ref["cfg"]))
-    params = TPK.params4d_from_numpy(ref["params"])
-    img, aux = TP.render_params4d_packed(params, TCamera.create(**CAM), 0.0,
+    params = TPK.params4d_from_numpy(ref["params"], "cpu")
+    img, aux = TP.render_params4d_packed(params, TCamera.create(**TCAM), 0.0,
                                          cfg=cfg, return_aux=True)
     rb = ref["binning"]
     for k in ("overflowed", "compact_dropped", "prune_underkeep"):

@@ -224,3 +224,76 @@ def test_pack_records_matches_reference():
                           torch.from_numpy(live), torch.tensor(p00),
                           torch.tensor(p11))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# K5 (general form) and K14: pack_rows and its VJP
+# ---------------------------------------------------------------------------
+
+def _pack_views(rows, pad_to):
+    return tuple(jnp.pad(jnp.asarray(f), (0, pad_to - f.shape[0]))
+                 .reshape(pad_to // 128, 128) for f in rows)
+
+
+@pytest.mark.parametrize("r,n,pad_to", [(10, 3000, 4096), (3, 2048, 2048),
+                                        (16, 1, 1024)])
+def test_pack_rows_matches_reference(r, n, pad_to):
+    """Forward against the reference's kernel (interpret mode) and against
+    jnp.stack; backward against jax.grad through the kernel's custom VJP
+    (its unpack kernel)."""
+    from fourdgs.ops import pack_pallas as RP
+    from fourdgs_torch.ops import pack_cuda as TPK
+    rng = np.random.default_rng(r + n)
+    rows = [rng.standard_normal(n).astype(np.float32) for _ in range(r)]
+    cot = rng.standard_normal((r, pad_to)).astype(np.float32)
+    blk = RP._blk_for(pad_to)
+    want = RP._pack_core(_pack_views(rows, pad_to), blk, True)
+    trows = [torch.from_numpy(f).requires_grad_(True) for f in rows]
+    got = TPK.pack_rows(trows, pad_to)
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.detach().numpy(),
+        np.asarray(RP.pack_rows([jnp.asarray(f) for f in rows], pad_to)))
+    assert (got.detach().numpy()[:, n:] == 0).all()
+
+    def loss(views):
+        return jnp.sum(RP._pack_core(views, blk, True) * jnp.asarray(cot))
+    want_g = jax.grad(loss)(_pack_views(rows, pad_to))
+    (got * torch.from_numpy(cot)).sum().backward()
+    for f, g in zip(trows, want_g):
+        np.testing.assert_allclose(f.grad.numpy(),
+                                   np.asarray(g).reshape(-1)[:n], rtol=1e-6,
+                                   atol=0)
+        assert f.grad.is_contiguous()
+
+
+def test_pack_rows_gradcheck():
+    from fourdgs_torch.ops import pack_cuda as TPK
+    gen = torch.Generator().manual_seed(0)
+    rows = [torch.randn(37, dtype=torch.float64, generator=gen,
+                        requires_grad=True) for _ in range(4)]
+    assert torch.autograd.gradcheck(lambda *r: TPK.pack_rows(r, 64), rows)
+
+
+def test_pack_rows_int32_and_refusals():
+    from fourdgs.ops import pack_pallas as RP
+    from fourdgs_torch.ops import pack_cuda as TPK
+    rng = np.random.default_rng(9)
+    rows = [rng.integers(-2 ** 31, 2 ** 31 - 1, 1500, dtype=np.int32)
+            for _ in range(6)]
+    want = RP._pack_core(_pack_views(rows, 2048), 2048, True)
+    got = TPK.pack_rows([torch.from_numpy(f) for f in rows], 2048)
+    assert got.dtype == torch.int32 and not got.requires_grad
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    cot = torch.from_numpy(np.array(want))
+    for g, f in zip(TPK.unpack_rows(cot, 1500), rows):
+        np.testing.assert_array_equal(g.numpy(), f)
+    f = torch.zeros(8)
+    with pytest.raises(ValueError, match="rows"):
+        TPK.pack_rows([f] * 17, 8)
+    with pytest.raises(ValueError, match="pad_to"):
+        TPK.pack_rows([f], 4)
+    with pytest.raises(ValueError, match="one dtype"):
+        TPK.pack_rows([f, f.int()], 8)
+    with pytest.raises(ValueError, match="cotangent"):
+        TPK.unpack_rows(torch.zeros((2, 8)), 9)

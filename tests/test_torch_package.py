@@ -24,7 +24,10 @@ KERNELS = (composite_cuda.COMPOSITE, sort_cuda.ROWSORT,
            lookup_cuda.SAMPLE_BLOCKS, pack_cuda.PACK_RECORD_FIELDS,
            pack_cuda.PACK_META_ROWS, tail_cuda.TAIL_PREPASS,
            tail_cuda.TAIL_ACCUMULATE, composite_cuda.COMPOSITE_BWD,
-           tail_cuda.TAIL_ACCUMULATE_BWD)
+           tail_cuda.TAIL_ACCUMULATE_BWD, lookup_cuda.APPLY_CUTKEYS,
+           sort_cuda.MERGE_TREE, sort_cuda.MERGE_CROSS_STAGE,
+           sort_cuda.MERGE_FINISH, pack_cuda.PACK_ROWS,
+           pack_cuda.UNPACK_ROWS)
 
 
 def test_package_never_imports_jax():
@@ -34,7 +37,8 @@ def test_package_never_imports_jax():
         "mods = [m.name for m in pkgutil.walk_packages("
         "fourdgs_torch.__path__, 'fourdgs_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 14, mods\n"
+        "assert len(mods) >= 15, mods\n"
+        "assert 'fourdgs_torch.ops.sort_checks' in mods, mods\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'fourdgs', 'triton'))\n"
         "assert not bad, bad\n"
@@ -75,8 +79,14 @@ def test_cpu_tensors_take_the_plain_versions():
                               torch.zeros(4, dtype=torch.int32),
                               torch.ones(8), 8, 2, 2, 512, 4, 1, 8,
                               slot_mask=mask).sum().backward()   # K9's
+    lookup_cuda.apply_cutkeys(key, torch.tensor([5 << 20],
+                                                dtype=torch.int32))
+    rows = torch.sort(key.reshape(8, 512) % 97, dim=1).values
+    sort_cuda.merge_sorted_rows(rows, rows)     # K11, K12, K13's
+    g = torch.ones(1000, requires_grad=True)
+    pack_cuda.pack_rows([g, g], 1024).sum().backward()      # K14's
     assert rec.grad is not None and f.grad is not None \
-        and fields.grad is not None
+        and fields.grad is not None and g.grad is not None
     for k in KERNELS:
         assert k.launches == 0, k.symbol
         assert k._fn is None, k.symbol             # nothing was built
@@ -88,6 +98,18 @@ def test_wrappers_refuse_other_devices():
         lookup_cuda.sample_blocks([key], stride_rows=1, take_rows=1)
     with pytest.raises(ValueError, match="unsupported device"):
         sort_cuda.rowsort_compact(key, key, 8, row_len=16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lookup_cuda.apply_cutkeys(key, key[:4])
+    with pytest.raises(ValueError, match="unsupported device"):
+        sort_cuda.merge_sorted_rows(key.reshape(4, 256), key.reshape(4, 256))
+    with pytest.raises(ValueError, match="unsupported device"):
+        sort_cuda.merge_cross_stage(key, key, 256, 1024)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sort_cuda.merge_finish(key, key, 1024, 512)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pack_cuda.pack_rows([key], 1024)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pack_cuda.unpack_rows(key.reshape(4, 256), 200)
 
 
 def test_wrappers_refuse_mixed_devices():
@@ -103,6 +125,29 @@ def test_wrappers_refuse_mixed_devices():
     meta_counts = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         composite_cuda.composite_records(rec, meta_counts, kx, kx, carry)
+    with pytest.raises(ValueError, match="device"):
+        lookup_cuda.apply_cutkeys(key, meta_cut)
+    with pytest.raises(ValueError, match="device"):
+        sort_cuda.merge_tree(key, key.to("meta"), 256)
+    with pytest.raises(ValueError, match="device"):
+        pack_cuda.pack_rows([key, key.to("meta")], 1024)
+
+
+def test_default_device_is_the_card():
+    """Entry points that make tensors make them on the card unless the
+    caller names a device; held here without touching a device."""
+    import inspect
+
+    import fourdgs_torch
+    from fourdgs_torch.core.camera import Camera
+    from fourdgs_torch.render.tiles import tile_pixel_ndc
+    from fourdgs_torch.scenes.cube import build_cube_scene
+    assert fourdgs_torch.default_device().type == "cuda"
+    assert fourdgs_torch.resolve_device(None) == fourdgs_torch.default_device()
+    assert fourdgs_torch.resolve_device("cpu") == torch.device("cpu")
+    for fn in (Camera.create, build_cube_scene, params4d_from_numpy,
+               tile_pixel_ndc):
+        assert inspect.signature(fn).parameters["device"].default is None, fn
 
 
 def _params(n=7):
@@ -112,7 +157,7 @@ def _params(n=7):
 
 def test_params4d_from_numpy_round_trip():
     p = _params()
-    t = params4d_from_numpy(p)
+    t = params4d_from_numpy(p, "cpu")
     assert set(t) == set(PARAM4D_FIELDS)
     for k in PARAM4D_FIELDS:
         assert t[k].dtype == torch.float32
@@ -134,7 +179,7 @@ def test_params4d_from_numpy_rejects(fault):
     else:
         p["sx"] = p["sx"][:, None]
     with pytest.raises(ValueError):
-        params4d_from_numpy(p)
+        params4d_from_numpy(p, "cpu")
 
 
 def test_launcher_passes_live_tensors():
@@ -161,7 +206,7 @@ def test_launcher_passes_live_tensors():
 
 def test_grads4d_to_numpy():
     t = {k: v.requires_grad_(True)
-         for k, v in params4d_from_numpy(_params()).items()}
+         for k, v in params4d_from_numpy(_params(), "cpu").items()}
     sum((i + 1) * v.sum() for i, v in enumerate(t.values())).backward()
     g = grads4d_to_numpy(t)
     assert list(g) == list(PARAM4D_FIELDS)

@@ -56,6 +56,34 @@ def test_attribute_trace_maps_launches_to_innermost_range():
     assert list(st)[0] == "fourdgs::a"       # sorted by device time
 
 
+def test_attribute_trace_splits_the_kernel_sorted_binning():
+    """The ranges of the kernel-sorted binning (`sort_backend="pallas"`):
+    the standalone cut (K10), the row compaction and the merge (K11-K13)
+    nest in `fourdgs::bin_sort` and keep their own device time."""
+    cut, compact, merge = ("fourdgs::apply_cutkeys", "fourdgs::compact_pairs",
+                           "fourdgs::merge_sorted_rows")
+    events = [
+        _range(PF.FRAME, 0.0, 10_000.0),
+        _range("fourdgs::bin_sort", 100.0, 8_000.0),
+        _range(cut, 200.0, 100.0), _range(compact, 400.0, 600.0),
+        _range(merge, 1_100.0, 400.0),
+        _launch(1, 150.0), _device(1, 160.0, 300.0),        # bin_sort itself
+        _launch(2, 250.0), _device(2, 500.0, 100.0),        # K10
+        _launch(3, 450.0), _device(3, 700.0, 9_000.0),      # the row sort
+        _launch(4, 1_150.0), _device(4, 9_800.0, 50.0),     # K11
+        _launch(5, 1_200.0), _device(5, 9_900.0, 10.0),     # K12
+        _launch(6, 1_300.0), _device(6, 9_950.0, 40.0),     # K13
+    ]
+    st = PF.attribute_trace(events)["stages"]
+    assert st[cut]["device_ms"] == pytest.approx(0.1) and st[cut]["ops"] == 1
+    assert st[compact]["device_ms"] == pytest.approx(9.0)
+    assert st[merge]["device_ms"] == pytest.approx(0.1)
+    assert st[merge]["ops"] == 3
+    assert st["fourdgs::bin_sort"]["device_ms"] == pytest.approx(0.3)
+    assert st["fourdgs::bin_sort"]["host_ms"] == pytest.approx(8.0)
+    assert list(st)[0] == compact
+
+
 def test_attribute_trace_needs_a_frame_range():
     with pytest.raises(ValueError, match="no fourdgs::frame"):
         PF.attribute_trace([_range("fourdgs::a", 0.0, 1.0)])
@@ -67,8 +95,9 @@ def test_profile_path_on_the_cpu_finds_every_stage():
     from fourdgs_torch.scenes.cube import (CUBE_CAMERA, build_cube_scene,
                                            converged_cube_scene)
     n, w, h = 2048, 256, 128
-    params = converged_cube_scene(build_cube_scene(n, seed=3))
-    cam = Camera.create(**CUBE_CAMERA, width=w, height=h)
+    params = converged_cube_scene(build_cube_scene(n, seed=3, device="cpu"))
+    cam = Camera.create(**CUBE_CAMERA, width=w, height=h,
+                        device="cpu")
     res = PF.profile_path(params, cam, auto_render_config(n, w, h),
                           warmup=0, timed=1, profiled=1)
     assert res["frames"] == 1 and res["ops"] == 0 and res["busy_ms"] == 0.0
@@ -80,6 +109,14 @@ def test_profile_path_on_the_cpu_finds_every_stage():
     assert all(st["host_ms"] > 0 for st in res["stages"].values())
     assert res["median_ms"] > 0 and len(res["frames_ms"]) == 1
     assert torch.isfinite(torch.tensor(res["frame_ms"]))
+    # The kernel-sorted binning opens its own ranges.
+    res = PF.profile_path(
+        params, cam, auto_render_config(n, w, h, sort_backend="pallas",
+                                        sort_compact_keep_cols=512),
+        warmup=0, timed=1, profiled=1)
+    assert {"fourdgs::apply_cutkeys", "fourdgs::compact_pairs",
+            "fourdgs::merge_sorted_rows"} <= set(res["stages"])
+    assert "fourdgs::rowsort_compact" not in res["stages"]
 
 
 def test_profile_path_grad_step_finds_the_backward_stages():
@@ -90,8 +127,9 @@ def test_profile_path_grad_step_finds_the_backward_stages():
     from fourdgs_torch.scenes.cube import (CUBE_CAMERA, build_cube_scene,
                                            converged_cube_scene)
     n, w, h = 2048, 256, 128
-    params = converged_cube_scene(build_cube_scene(n, seed=3))
-    cam = Camera.create(**CUBE_CAMERA, width=w, height=h)
+    params = converged_cube_scene(build_cube_scene(n, seed=3, device="cpu"))
+    cam = Camera.create(**CUBE_CAMERA, width=w, height=h,
+                        device="cpu")
     res = PF.profile_path(params, cam, auto_render_config(n, w, h),
                           warmup=0, timed=1, profiled=1, grad=True)
     want = {PF.BACKWARD, "fourdgs::composite_bwd", "fourdgs::tail_bwd",

@@ -39,31 +39,34 @@ from fourdgs_torch.splats.packed import params4d_from_numpy  # noqa: E402
 N, W, H, SCALE = 4000, 256, 128, 0.15
 CAM = dict(position=(420.0 * SCALE, 300.0 * SCALE, 420.0 * SCALE),
            orientation=(-1.0, -0.7, -1.0), far=5000.0, width=W, height=H)
+TCAM = dict(CAM, device="cpu")      # the port's camera, on the CPU
 DEAD = np.iinfo(np.int32).max
 BIN_FIELDS = ("pair_splat", "pair_tile", "tile_start", "overflowed",
               "compact_dropped", "prune_underkeep", "tile_pruned",
-              "prune_cut", "big_ids")
+              "prune_cut", "head_counts", "big_ids")
 
 
 def _np(x):
     return np.array(x)
 
 
-@pytest.fixture(scope="module")
-def ref():
-    """The reference's projection, binning and image, computed stage by
-    stage exactly as its render_params4d_packed composes them."""
+def reference_stages(cfg, n=N, w=W, h=H, cam_kw=None, scale=SCALE, seed=0,
+                     bands=(None,), composite=True):
+    """The reference's projection, binning and image for `cfg`, computed
+    stage by stage exactly as its render_params4d_packed composes them, as
+    numpy arrays: the hand-over of parameters and of integer state (pair
+    keys' order, cut tables, CSR offsets) to the port. `bands` lists the
+    tile_row_band of each binning wanted (None: the whole image); the
+    composite is of the first."""
     from bench import build_cube_scene
     from fourdgs.core.camera import Camera
     from fourdgs.render import pipeline as RP
     from fourdgs.render import tiles as RT
-    from fourdgs.render.autoconfig import auto_render_config
 
-    params = build_cube_scene(N)
-    params = {k: v * SCALE if k in ("px", "py", "pz") else v
+    params = build_cube_scene(n, seed=seed)
+    params = {k: v * scale if k in ("px", "py", "pz") else v
               for k, v in params.items()}
-    cam = Camera.create(**CAM)
-    cfg = auto_render_config(N, W, H, converged=False)
+    cam = Camera.create(**(cam_kw or CAM))
     pm = _np(cam.proj_matrix())
     p00, p11 = pm[0, 0], pm[1, 1]
 
@@ -81,31 +84,66 @@ def ref():
         max_tiles_per_splat=cfg.max_tiles_per_splat, quantized_depth=True,
         compact_keep_cols=cfg.sort_compact_keep_cols,
         big_splat_budget=cfg.big_splat_budget,
-        big_splat_keep_cols=cfg.big_splat_keep_cols, pallas_compact=True,
+        big_splat_keep_cols=cfg.big_splat_keep_cols,
+        pallas_sort=cfg.sort_backend == "pallas",
+        pallas_compact=cfg.compact_backend == "pallas",
         compact_row_len=cfg.compact_row_len,
         depth_prune_cap=cfg.depth_prune_cap,
-        depth_prune_safety=cfg.depth_prune_safety)
+        depth_prune_safety=cfg.depth_prune_safety,
+        head_cap=cfg.max_splats_per_tile if cfg.tail_mode == "banded" else 0)
 
     @jax.jit
     def stages(p):
         proj = project(p)
-        binning = RT.bin_splats(proj, p00, p11, W, H, **bin_kw)
-        px, py, _ = RT.tile_pixel_ndc(W, H, cfg.tile_h, cfg.tile_w)
+        binnings = [RT.bin_splats(proj, p00, p11, w, h, tile_row_band=band,
+                                  **bin_kw) for band in bands]
+        if not composite:
+            return proj, binnings, jnp.zeros(()), jnp.zeros(())
+        px, py, _ = RT.tile_pixel_ndc(w, h, cfg.tile_h, cfg.tile_w)
         tiles, resid = RP._composite_pallas_progressive(
-            proj, binning, px, py, p00, p11,
+            proj, binnings[0], px, py, p00, p11,
             jnp.asarray(cfg.background, jnp.float32), cfg,
-            return_resid=True, image_size=(W, H))
-        img = RT.assemble_image(tiles, W, H, cfg.tile_h, cfg.tile_w)
-        return proj, binning, img, jnp.max(resid)
+            return_resid=True, image_size=(w, h))
+        img = RT.assemble_image(tiles, w, h, cfg.tile_h, cfg.tile_w)
+        return proj, binnings, img, jnp.max(resid)
 
-    proj, binning, img, resid = stages(params)
+    proj, binnings, img, resid = stages(params)
+    binnings = [{k: None if getattr(b, k) is None else _np(getattr(b, k))
+                 for k in BIN_FIELDS} for b in binnings]
     return dict(params={k: _np(v) for k, v in params.items()}, cfg=cfg,
                 p00=p00, p11=p11, bin_kw=bin_kw,
                 proj={f.name: _np(getattr(proj, f.name))
                       for f in dataclasses.fields(proj)},
-                binning={k: None if getattr(binning, k) is None
-                         else _np(getattr(binning, k)) for k in BIN_FIELDS},
+                binning=binnings[0], binnings=binnings,
                 img=_np(img), resid=float(resid))
+
+
+@pytest.fixture(scope="module")
+def ref():
+    from fourdgs.render.autoconfig import auto_render_config
+    return reference_stages(auto_render_config(N, W, H, converged=False))
+
+
+def assert_binning_matches(tb, rb, min_live=1000):
+    """The port's TileBinning against the reference's (numpy) one: integers
+    exact, sorted keys over the live prefix (as tile ids) exact, the pairs
+    of each tile equal as multisets."""
+    for name in ("tile_start", "overflowed", "compact_dropped",
+                 "prune_underkeep", "tile_pruned", "prune_cut",
+                 "head_counts", "big_ids"):
+        want = rb[name]
+        got = getattr(tb, name)
+        assert (got is None) == (want is None), name
+        if want is not None:
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+    live = int(rb["tile_start"][-1])
+    assert live > min_live
+    np.testing.assert_array_equal(tb.pair_tile.numpy()[:live],
+                                  rb["pair_tile"][:live])
+    got = _pair_multiset(tb.pair_tile.numpy(), tb.pair_splat.numpy(), live)
+    want = _pair_multiset(rb["pair_tile"], rb["pair_splat"], live)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
 
 
 def _tproj(ref):
@@ -120,7 +158,7 @@ def _pair_multiset(tile, splat, live):
 
 def test_camera_matches_reference():
     from fourdgs.core.camera import Camera
-    rc, tc = Camera.create(**CAM), TCamera.create(**CAM)
+    rc, tc = Camera.create(**CAM), TCamera.create(**TCAM)
     np.testing.assert_allclose(tc.view_matrix().numpy(),
                                _np(rc.view_matrix()), rtol=0, atol=2e-6)
     np.testing.assert_allclose(tc.proj_matrix().numpy(),
@@ -147,8 +185,8 @@ def _conic(v0x, v0y, l0, l1):
 
 
 def test_projection_matches_reference(ref):
-    tparams = params4d_from_numpy(ref["params"])
-    proj = TP.project_params4d(tparams, TCamera.create(**CAM), 0.0)
+    tparams = params4d_from_numpy(ref["params"], "cpu")
+    proj = TP.project_params4d(tparams, TCamera.create(**TCAM), 0.0)
     for name, want in ref["proj"].items():
         got = getattr(proj, name).numpy()
         if want.dtype == bool:
@@ -171,23 +209,16 @@ def test_bin_splats_matches_reference(ref):
     rb = ref["binning"]
     tb = TT.bin_splats(_tproj(ref), torch.tensor(ref["p00"]),
                        torch.tensor(ref["p11"]), W, H, **ref["bin_kw"])
-    for name in ("tile_start", "overflowed", "compact_dropped",
-                 "prune_underkeep", "tile_pruned", "prune_cut", "big_ids"):
-        np.testing.assert_array_equal(getattr(tb, name).numpy(), rb[name],
-                                      err_msg=name)
-    live = int(rb["tile_start"][-1])
-    assert live > 1000 and int(rb["tile_pruned"].sum()) > 0
-    got = _pair_multiset(tb.pair_tile.numpy(), tb.pair_splat.numpy(), live)
-    want = _pair_multiset(rb["pair_tile"], rb["pair_splat"], live)
-    np.testing.assert_array_equal(got[0], want[0])
-    np.testing.assert_array_equal(got[1], want[1])
+    assert_binning_matches(tb, rb)
+    assert int(rb["tile_pruned"].sum()) > 0
 
 
 def test_composite_from_reference_binning(ref):
     cfg = TP.RenderConfig(**dataclasses.asdict(ref["cfg"]))
     binning = TT.TileBinning(**{k: None if v is None else torch.from_numpy(v)
                                 for k, v in ref["binning"].items()})
-    px, py, _ = TT.tile_pixel_ndc(W, H, cfg.tile_h, cfg.tile_w)
+    px, py, _ = TT.tile_pixel_ndc(W, H, cfg.tile_h, cfg.tile_w,
+                                  device="cpu")
     p00, p11 = torch.tensor(ref["p00"]), torch.tensor(ref["p11"])
     tiles, resid = TP._composite_pallas_progressive(
         _tproj(ref), binning, px, py, p00, p11,
@@ -202,9 +233,9 @@ def test_composite_from_reference_binning(ref):
 
 def test_render_params4d_packed_matches_reference(ref):
     cfg = TP.RenderConfig(**dataclasses.asdict(ref["cfg"]))
-    img, aux = TP.render_params4d_packed(params4d_from_numpy(ref["params"]),
-                                         TCamera.create(**CAM), 0.0, cfg=cfg,
-                                         return_aux=True)
+    img, aux = TP.render_params4d_packed(
+        params4d_from_numpy(ref["params"], "cpu"), TCamera.create(**TCAM),
+        0.0, cfg=cfg, return_aux=True)
     rb = ref["binning"]
     assert int(aux["overflowed"]) == int(rb["overflowed"]) == 0
     assert int(aux["compact_dropped"]) == int(rb["compact_dropped"]) == 0

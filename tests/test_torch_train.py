@@ -56,7 +56,7 @@ from fourdgs_torch.scenes.cube import build_cube_scene  # noqa: E402
 from fourdgs_torch.splats import packed as TPK  # noqa: E402
 from fourdgs_torch.train import loss as TLOSS  # noqa: E402
 from test_torch_converged import (  # noqa: E402
-    BIN_FIELDS, CAM, CHUNK, H, SCALE, W, _raw_params)
+    BIN_FIELDS, CAM, CHUNK, H, SCALE, TCAM, W, _raw_params)
 
 T_EVAL = 0.37
 # The differentiable fields of the projection (depth enters only through
@@ -95,7 +95,7 @@ def _assert_grads_tie_close(got, want):
 
 def _port_grads(params_np, camera, t, cfg, wts):
     params = {k: v.requires_grad_(True)
-              for k, v in TPK.params4d_from_numpy(params_np).items()}
+              for k, v in TPK.params4d_from_numpy(params_np, "cpu").items()}
     img = TP.render_params4d_packed(params, camera, t, cfg=cfg)
     (img[..., :3] * torch.from_numpy(wts)).sum().backward()
     return TPK.grads4d_to_numpy(params)
@@ -195,7 +195,8 @@ def test_head_and_tail_grads_from_reference_binning(ref_grad, monkeypatch):
         seen.append(args[-1].detach().clone())
         return bwd(*args)
     monkeypatch.setattr(TC, "composite_records_bwd", record)
-    px, py, _ = TT.tile_pixel_ndc(W, H, cfg.tile_h, cfg.tile_w)
+    px, py, _ = TT.tile_pixel_ndc(W, H, cfg.tile_h, cfg.tile_w,
+                                  device="cpu")
     tiles, _ = TP._composite_pallas_progressive(
         proj, binning, px, py, torch.tensor(ref_grad["p00"]),
         torch.tensor(ref_grad["p11"]), torch.tensor(cfg.background), cfg,
@@ -212,7 +213,7 @@ def test_head_and_tail_grads_from_reference_binning(ref_grad, monkeypatch):
 
 def test_converged_frame_grads_match_reference(ref_grad):
     cfg = TP.RenderConfig(**dataclasses.asdict(ref_grad["cfg"]))
-    got = _port_grads(ref_grad["params"], TCamera.create(**CAM), T_EVAL, cfg,
+    got = _port_grads(ref_grad["params"], TCamera.create(**TCAM), T_EVAL, cfg,
                       _wts(H, W))
     want = ref_grad["g_params"]
     _assert_grads_tie_close(got, want)
@@ -276,7 +277,7 @@ def test_six_splat_frame_grads_match_reference(passes):
     params = _six_splat_scene()
     wts = _wts(SIX_H, SIX_W)
     want = _ref_frame_grads(params, cam_kw, T_EVAL, cfg, wts)
-    got = _port_grads(params, TCamera.create(**cam_kw), T_EVAL,
+    got = _port_grads(params, TCamera.create(**cam_kw, device="cpu"), T_EVAL,
                       TP.RenderConfig(**dataclasses.asdict(cfg)), wts)
     _assert_grads_close(got, want, 1e-4)
     for k in TPK.PARAM4D_FIELDS:
@@ -302,7 +303,7 @@ def test_non_converged_frame_grads_match_reference():
         return at(rec, cnt, *a)
     TP.composite_records_at = count
     try:
-        got = _port_grads(params, TCamera.create(**CAM), T_EVAL,
+        got = _port_grads(params, TCamera.create(**TCAM), T_EVAL,
                           TP.RenderConfig(**dataclasses.asdict(cfg)), wts)
     finally:
         TP.composite_records_at = at
@@ -343,7 +344,7 @@ def test_avg_pool_is_valid_uniform_window():
 # ---------------------------------------------------------------------------
 
 def _cube(seed):
-    p = build_cube_scene(4000, seed=seed)
+    p = build_cube_scene(4000, seed=seed, device="cpu")
     p = {k: v * SCALE if k in ("px", "py", "pz") else v for k, v in p.items()}
     return TPK.pad_packed_params(TPK.morton_order(p), CHUNK)
 
@@ -353,7 +354,7 @@ def test_training_through_converged_frame():
     stack: four Adam steps through the converged frame toward a target
     rendered from another seed; the loss falls and every gradient is
     finite."""
-    cam = TCamera.create(**CAM)
+    cam = TCamera.create(**TCAM)
     cfg = t_auto(4096, W, H, tail_chunk=CHUNK)
     with torch.no_grad():
         target = TP.render_params4d_packed(_cube(8), cam, 0.0, cfg=cfg)
