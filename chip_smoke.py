@@ -28,7 +28,11 @@ on the same card at each of those call sites. Phases:
       sample and the band-cut sample), K2, K1 pass 1, K4, K5, K6 (main and
       big-tier stream, and the main meta at a 1024-wide chunk, where the
       bands and slot masks are not trivial) and K7 (main and big-tier
-      stream), each with the kernel and plain times;
+      stream), each with the kernel and plain times; then K7 and K9 where
+      the frame's own sites do not reach: the main stream under 32 and 64
+      samples a tile (tail blocks 8x8 and 4x8: the kernels' second unrolled
+      instance and their run-time loops) and the big-tier stream re-chunked
+      to a chunk of 200 (ragged units), K9 under a random cotangent;
   (h) the 20K-splat frame, converged, on the card against the CPU: binning
       (head re-cut included) equal, head + tail of one binning within 1e-5,
       the whole frame within the tie-order tolerance;
@@ -137,15 +141,23 @@ KERNEL_INFO = {
     "K14 unpack_rows": ("fourdgs_torch/ops/csrc/pack.cu",
                         "fourdgs/ops/pack_pallas.py:45"),
 }
-# K7 against its plain version: the kernel adds each sample's planes with
-# atomics in no fixed order, so sums of up to thousands of terms differ in
-# rounding; every per-sample operation rounds alike (both are float32, and
-# the kernel is built with -fmad=false).
+# K7 against its plain version: the kernel adds each covered sample's planes
+# with atomics in no fixed order, so sums of up to thousands of terms differ
+# in rounding; every per-sample operation rounds alike (both are float32,
+# and the kernel is built with -fmad=false).
 K7_RTOL, K7_ATOL = 1e-4, 1e-5
 # K8 and K9 against their plain versions, relative to each field's max |d|:
 # each field's cotangent is a sum over a tile's pixels (K8) or a pair's
-# samples and slots (K9), taken in another order by the kernel.
+# samples and slots (K9), taken in another order by the kernel. K9 sums a
+# splat's terms in one thread in a fixed order (slot after slot, sample
+# after sample), so it repeats itself bit for bit, but it is not expected to
+# equal the plain version's batched sums bit for bit.
 BWD_TOL = 1e-4
+# Other sample grids and a ragged chunk for K7 and K9: (tail_block, what the
+# kernels run for it) on the 16x128 tile, and the chunk below 512.
+TAIL_VARIANT_BLOCKS = (((8, 8), "2 x 16 = 32 samples, unrolled"),
+                       ((4, 8), "4 x 16 = 64 samples, run-time loops"))
+RAGGED_CHUNK, RAGGED_SPLATS = 200, 1000
 T_GRAD = 0.37            # at t = pt the temporal fields get no gradient
 TIMED_STEPS = 5
 # The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet): HBM3
@@ -613,6 +625,13 @@ def tail_slots(meta, budget_lo, budget):
     return int((meta[5].clamp(max=budget) - budget_lo).clamp(min=0).sum())
 
 
+def tail_reps(npts):
+    """Timed launches of K7 or K9 at a stream of npts splats: the big-tier
+    stream's few thousand take ~0.05 ms, mostly the wrapper's host time, so
+    one hiccup of the host in ten launches would double the reading."""
+    return 10 if npts >= 1_000_000 else 100
+
+
 def phase_converged_kernels(captured, tag="(g)"):
     """K4-K7 at every call site of one converged frame (or of one band of
     it), against their plain versions on the card."""
@@ -737,7 +756,8 @@ def phase_converged_kernels(captured, tag="(g)"):
         nz = want != 0
         rel = float((d / want.abs().clamp(min=1e-30))[nz].max()) \
             if bool(nz.any()) else 0.0
-        ms = cuda_ms(lambda: TL.tail_accumulate(*args, **kw), 10)
+        ms = cuda_ms(lambda: TL.tail_accumulate(*args, **kw),
+                     tail_reps(npts))
         plain_ms = cuda_ms(k7_plain, 2, warmup=1)
         where = (f"{label}: {npts:,} splats, chunk {plain_kw['chunk']}, "
                  f"budget ({plain_kw['budget_lo']}, {plain_kw['budget']}]")
@@ -754,6 +774,87 @@ def phase_converged_kernels(captured, tag="(g)"):
     print(f"{tag} K7 tail_accumulate (tolerance {K7_RTOL:g} rel + {K7_ATOL:g}): "
           + "; ".join(lines))
     return results
+
+
+def phase_tail_variants(tag, captured, camera, cfg):
+    """K7 and K9 against their plain versions where the frame's own call
+    sites do not reach: the main stream's splats under the sample grids of
+    two other tail blocks (the kernels' second unrolled instance and their
+    run-time loops; params_row made for the block, everything else as the
+    frame gave it), and the big-tier stream's first splats re-chunked to a
+    chunk below 512, one ragged unit a chunk. K9 runs under a seeded random
+    cotangent. Times are printed; the `kernels` line keeps the frame's own
+    sites."""
+    import torch
+    import torch.nn.functional as F
+    from fourdgs_torch.ops import tail_cuda as TL
+
+    main, big = captured["tail_cuda.tail_accumulate"]
+    pmat = camera.proj_matrix()
+    cases = []
+    (fields, meta, band, rect, cut, _), kw = main
+    for block, what in TAIL_VARIANT_BLOCKS:
+        s_cy, s_cx = cfg.tile_h // block[0], cfg.tile_w // block[1]
+        prm = TL.tail_params_row(cfg.tile_h, cfg.tile_w, block, camera.width,
+                                 camera.height, pmat[0, 0], pmat[1, 1])
+        cases.append((f"main stream, tail_block {block}: {what}",
+                      (fields, meta, band, rect, cut, prm),
+                      dict(kw, s_cy=s_cy, s_cx=s_cx)))
+    (fields, meta, _, _, cut, prm), kw = big
+    meta_r = meta[:, :RAGGED_SPLATS].contiguous()
+    check(meta_r.shape[1] == RAGGED_SPLATS
+          and RAGGED_CHUNK < TL.SUB and RAGGED_SPLATS % RAGGED_CHUNK == 0,
+          f"{tag} the big-tier stream has fewer than {RAGGED_SPLATS} ids")
+    cuts = TL.global_band_cuts(
+        torch.where(meta_r[5] > 0, meta_r[4], 2 ** 31 - 1), kw["k_bands"])
+    band_r, rect_r, mask_r = TL.tail_prepass(
+        meta_r, cuts, RAGGED_CHUNK, kw["budget"], budget_lo=kw["budget_lo"],
+        k_bands=kw["k_bands"])
+    cases.append((f"big-tier stream's first {RAGGED_SPLATS} ids at chunk "
+                  f"{RAGGED_CHUNK} (ragged units)",
+                  (fields[:, :RAGGED_SPLATS].contiguous(), meta_r, band_r,
+                   rect_r, cut, prm),
+                  dict(kw, chunk=RAGGED_CHUNK, slot_mask=mask_r)))
+    gen = torch.Generator(device=meta.device).manual_seed(5)
+    for label, args, kw in cases:
+        fields, meta, band, rect, cut, prm = args
+        fields_p = F.pad(fields, (0, meta.shape[1] - fields.shape[1]))
+        plain_kw = {k: kw[k] for k in ("k_bands", "nx", "ny", "chunk",
+                                       "budget", "s_cy", "s_cx",
+                                       "exact_clip")}
+        plain_kw["budget_lo"] = kw.get("budget_lo", 0)
+        got = TL.tail_accumulate(*args, **kw)
+        want = TL.tail_accumulate_plain(fields_p, meta, band, cut, prm,
+                                        **plain_kw)
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        bad = d > K7_ATOL + K7_RTOL * want.abs()
+        check(not bool(bad.any()) and float(want.abs().sum()) > 0,
+              f"{tag} K7 {label}: {int(bad.sum())} entries outside "
+              f"{K7_RTOL:g} rel + {K7_ATOL:g}, max |d| {float(d.max()):.3e}, "
+              f"sum |acc| {float(want.abs().sum()):.3e}")
+        d_acc = torch.randn(want.shape, generator=gen, device=meta.device)
+
+        def k9():
+            return TL.tail_accumulate_bwd(fields_p, meta, band, cut, prm,
+                                          d_acc, kw.get("slot_mask"),
+                                          **plain_kw)
+        got_b = k9()
+        want_b = TL.tail_accumulate_bwd_plain(fields_p, meta, band, cut, prm,
+                                              d_acc, **plain_kw)
+        torch.cuda.synchronize()
+        rel, _ = _field_err(got_b, want_b, 0)
+        check(rel <= BWD_TOL and float(want_b.abs().max()) > 0
+              and torch.equal(got_b, k9()),
+              f"{tag} K9 {label}: {rel:.3e} of a field's max |d| > "
+              f"{BWD_TOL:g}, or two launches differ")
+        ms7 = cuda_ms(lambda: TL.tail_accumulate(*args, **kw), 10)
+        ms9 = cuda_ms(k9, 10)
+        print(f"{tag} K7 and K9 at {label}: K7 max |d| {float(d.max()):.3e} "
+              f"(tolerance {K7_RTOL:g} rel + {K7_ATOL:g}), {ms7:.3f} ms; K9 "
+              f"{rel:.3e} of max |d| (tolerance {BWD_TOL:g}; equal bit for "
+              f"bit between two launches, not to the plain version), "
+              f"{ms9:.3f} ms")
 
 
 def phase_full_frame(tag, params, camera, cfg, kernels, expect, timed):
@@ -892,7 +993,7 @@ def phase_backward_kernels(tag, calls_c, calls_t):
             else (float(got.abs().max()), float(got.abs().max()))
         check(rel <= BWD_TOL, f"{tag} K9 {label}: {rel:.3e} of a field's max "
               f"|d| > {BWD_TOL:g}")
-        ms = cuda_ms(k9, reps=10)
+        ms = cuda_ms(k9, reps=tail_reps(meta.shape[1]))
         plain_ms = cuda_ms(plain, reps=2, warmup=1)
         where = (f"{label}: {meta.shape[1]:,} splats, chunk "
                  f"{plain_kw['chunk']}, budget ({plain_kw['budget_lo']}, "
@@ -906,7 +1007,9 @@ def phase_backward_kernels(tag, calls_c, calls_t):
                      f"plain {plain_ms:.3f} ms")
     results["K9 tail_accumulate_bwd"] = _sites(sites)
     print(f"{tag} K9 tail_accumulate_bwd (tolerance {BWD_TOL:g} of each "
-          f"field's max |d|): " + "; ".join(lines))
+          f"field's max |d|; one thread sums a splat's terms in a fixed "
+          f"order, so K9 is not expected bit-equal to the plain version's "
+          f"batched sums): " + "; ".join(lines))
     return results
 
 
@@ -1566,6 +1669,7 @@ def main() -> int:
     }
     conv.update(phase_converged_kernels(captured))
     results["converged"] = conv
+    phase_tail_variants("(g)", captured, camera, cfg)
     del captured
     torch.cuda.empty_cache()
     # (h) card against CPU on a small converged frame.

@@ -7,8 +7,9 @@ Each `.cu` file exposes plain C entry points (no PyTorch headers), so one
          -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
 
 The library is built at first use into `ops/_build/` (listed in
-`.gitignore`), named by a hash of its source and flags so an edited source is
-never served a stale library, and loaded with `ctypes`. Pointers and the
+`.gitignore`), named by a hash of its source, the headers (`*.cuh`) beside it
+and the flags so an edited source is never served a stale library, and loaded
+with `ctypes`. Pointers and the
 stream travel as `c_void_p`; every entry returns `cudaGetLastError()` after
 its launch and the launcher raises when it is not 0. The launcher takes
 tensors and passes their data pointers.
@@ -56,8 +57,10 @@ def load_library(source: str, extra_flags=()) -> ctypes.CDLL:
         return _LIBS[key]
     src = CSRC / source
     flags = NVCC_FLAGS + tuple(extra_flags)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
-                            ).hexdigest()[:16]
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(flags).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"{src.stem}-{digest}.so"
     if not lib_path.exists():

@@ -24,6 +24,9 @@ reference's `tail_accumulate_xla`, batched) for K7,
 `_tail_bwd_kernel`) for K9. A CPU tensor runs the plain version; a CUDA
 tensor launches the kernel. `tail_accumulate` is an autograd Function that
 differentiates `fields`; the plain versions also take float64 CPU tensors.
+K7 and K9 walk the stream in units of SUB splats (`csrc/tail_unit.cuh`);
+`unit_worklists`, `tail_accumulate_units` and `tail_accumulate_bwd_units`
+write that walk out in plain PyTorch for the CPU tests.
 
 The reference's band assignment sums a chunk's depth bits in int32, which
 wraps past 2^31 for chunks with more than about 8,000 live entries (ROADMAP
@@ -63,10 +66,10 @@ TAIL_PREPASS = CudaKernel(
     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6, extra_flags=_FLAGS)
 TAIL_ACCUMULATE = CudaKernel(
     "tail.cu", "fourdgs_tail_accumulate",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12, extra_flags=_FLAGS)
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14, extra_flags=_FLAGS)
 TAIL_ACCUMULATE_BWD = CudaKernel(
     "tail_bwd.cu", "fourdgs_tail_accumulate_bwd",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11, extra_flags=_FLAGS)
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14, extra_flags=_FLAGS)
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -280,17 +283,28 @@ def tail_prepass(meta, band_cuts, chunk: int, budget: int,
 # ---------------------------------------------------------------------------
 
 def _cut_table(cut: torch.Tensor) -> torch.Tensor:
-    if cut.shape[0] > CUT_ENTRIES:
-        raise ValueError(f"cut table of {cut.shape[0]} tiles exceeds "
-                         f"{CUT_ENTRIES}")
-    return torch.cat([cut.to(torch.int32),
-                      cut.new_full((CUT_ENTRIES - cut.shape[0],), INT32_MAX,
-                                   dtype=torch.int32)])
+    """The cut table the plain versions index: padded to CUT_ENTRIES with
+    INT32_MAX (K7 and K9 pad it themselves, in shared memory)."""
+    _check_cut(cut)
+    return F.pad(cut.to(torch.int32), (0, CUT_ENTRIES - cut.shape[0]),
+                 value=INT32_MAX)
 
 
-def _mask_arg(slot_mask):
-    return None if slot_mask is None else \
-        slot_mask.to(torch.int32).contiguous()
+def _check_cut(cut: torch.Tensor) -> None:
+    if cut.dim() != 1 or cut.shape[0] > CUT_ENTRIES:
+        raise ValueError(f"cut table of shape {tuple(cut.shape)} exceeds "
+                         f"({CUT_ENTRIES},)")
+
+
+def _strided_arg(x):
+    """A per-chunk int32 vector for K7 / K9 as (tensor or None, stride in
+    elements): the prepass hands columns of its (S, 6) output, which the
+    kernels read in place."""
+    if x is None:
+        return None, 1
+    if x.dtype != torch.int32 or x.dim() != 1 or x.stride(0) <= 0:
+        x = x.to(torch.int32).contiguous()
+    return x, x.stride(0)
 
 
 def tail_accumulate_plain(fields, meta, band, cut, params_row, k_bands: int,
@@ -329,6 +343,44 @@ def _widening(f, bx2, by2):
     return c0, c1, m0, m1
 
 
+def _sample_grid(s_cy: int, s_cx: int, dev, dtype):
+    """(jx, jy) of the s_cy * s_cx coarse samples of a tile, row-major."""
+    jidx = torch.arange(s_cy * s_cx, device=dev)
+    return ((jidx % s_cx).to(dtype),
+            torch.div(jidx, s_cx, rounding_mode="floor").to(dtype))
+
+
+def _pair_samples(f, tx, ty, params_row, jx, jy, exact_clip: bool):
+    """The per-sample quantities (L, n_samp) of L pairs, f (10, L) their
+    splats' fields and (tx, ty) their tiles, in the kernels' order of
+    operations: (dx, dy, e0, e1, n0, n1, w, cov, aw, alpha)."""
+    dtype = f.dtype
+    kx_t, kx_j, kx_0, ky_t, ky_j, ky_0, bx2, by2 = params_row.unbind()
+    sx, sy, v0x, v0y, il0, il1 = f[:6]
+    _, _, m0, m1 = _widening(f, bx2, by2)
+    il0w = il0 * m0 * _QSCALE
+    il1w = il1 * m1 * _QSCALE
+    gate = f[9] * (m0 * m1)
+    txf = tx.to(dtype)[:, None]
+    tyf = ty.to(dtype)[:, None]
+    kxs = kx_t * txf + kx_j * jx[None, :] + kx_0
+    kys = ky_t * tyf + ky_j * jy[None, :] + ky_0
+    dx = kxs - sx[:, None]
+    dy = kys - sy[:, None]
+    e0 = v0x[:, None] * dx + v0y[:, None] * dy
+    e1 = v0y[:, None] * dx - v0x[:, None] * dy
+    n0 = e0 * il0w[:, None]
+    n1 = e1 * il1w[:, None]
+    w = torch.exp(-(n0 * n0 + n1 * n1))
+    cov = w >= 1e-4
+    if exact_clip:
+        cov &= ((torch.abs(n0) <= (0.5 * _QSCALE) * m0[:, None])
+                & (torch.abs(n1) <= (0.5 * _QSCALE) * m1[:, None]))
+    aw = gate[:, None] * w
+    alpha = torch.clamp(torch.where(cov, aw, 0.0), max=ALPHA_MAX)
+    return dx, dy, e0, e1, n0, n1, w, cov, aw, alpha
+
+
 def _live_pairs(fields, meta, band, cut, params_row, nx: int, ny: int,
                 chunk: int, budget: int, s_cy: int, s_cx: int, budget_lo: int,
                 exact_clip: bool):
@@ -337,15 +389,11 @@ def _live_pairs(fields, meta, band, cut, params_row, nx: int, ny: int,
     cov, aw, alpha)) with idx the splat indices (int64, global), row their
     accumulator rows, f = fields[:, idx] (10, L) and the per-sample
     quantities (L, n_samp) in the kernels' order of operations."""
-    n_samp = s_cy * s_cx
     npts = meta.shape[1]
     ny_pad = ny_padded(ny)
     rows_per_band = nx * ny_pad
     dev, dtype = meta.device, fields.dtype
-    kx_t, kx_j, kx_0, ky_t, ky_j, ky_0, bx2, by2 = params_row.unbind()
-    jidx = torch.arange(n_samp, device=dev)
-    jy = torch.div(jidx, s_cx, rounding_mode="floor").to(dtype)
-    jx = (jidx % s_cx).to(dtype)
+    jx, jy = _sample_grid(s_cy, s_cx, dev, dtype)
     cut_pad = _cut_table(cut)
     step = max(chunk, PLAIN_BATCH_PAIRS // chunk * chunk)
     for p0 in range(0, npts, step):
@@ -367,31 +415,10 @@ def _live_pairs(fields, meta, band, cut, params_row, nx: int, ny: int,
             if idx.numel() == 0:
                 continue
             f = fields[:, p0 + idx]
-            sx, sy, v0x, v0y, il0, il1 = f[:6]
-            _, _, m0, m1 = _widening(f, bx2, by2)
-            il0w = il0 * m0 * _QSCALE
-            il1w = il1 * m1 * _QSCALE
-            gate = f[9] * (m0 * m1)
-            txf = tx[idx].to(dtype)[:, None]
-            tyf = ty[idx].to(dtype)[:, None]
-            kxs = kx_t * txf + kx_j * jx[None, :] + kx_0
-            kys = ky_t * tyf + ky_j * jy[None, :] + ky_0
-            dx = kxs - sx[:, None]
-            dy = kys - sy[:, None]
-            e0 = v0x[:, None] * dx + v0y[:, None] * dy
-            e1 = v0y[:, None] * dx - v0x[:, None] * dy
-            n0 = e0 * il0w[:, None]
-            n1 = e1 * il1w[:, None]
-            w = torch.exp(-(n0 * n0 + n1 * n1))
-            cov = w >= 1e-4
-            if exact_clip:
-                cov &= ((torch.abs(n0) <= (0.5 * _QSCALE) * m0[:, None])
-                        & (torch.abs(n1) <= (0.5 * _QSCALE) * m1[:, None]))
-            aw = gate[:, None] * w
-            alpha = torch.clamp(torch.where(cov, aw, 0.0), max=ALPHA_MAX)
+            pair = _pair_samples(f, tx[idx], ty[idx], params_row, jx, jy,
+                                 exact_clip)
             row = (band_b[idx] * rows_per_band + tx[idx] * ny_pad + ty[idx])
-            yield (p0 + idx, row.long(), f,
-                   (dx, dy, e0, e1, n0, n1, w, cov, aw, alpha))
+            yield p0 + idx, row.long(), f, pair
 
 
 def tail_accumulate_bwd_plain(fields, meta, band, cut, params_row, d_acc,
@@ -415,29 +442,38 @@ def tail_accumulate_bwd_plain(fields, meta, band, cut, params_row, d_acc,
     for idx, row, f, pair in _live_pairs(fields, meta, band, cut, params_row,
                                          nx, ny, chunk, budget, s_cy, s_cx,
                                          budget_lo, exact_clip):
-        dx, dy, e0, e1, n0, n1, w, cov, aw, alpha = pair
-        v0x, v0y, il0, il1 = (x[:, None] for x in f[2:6])
-        _, _, m0, m1 = _widening(f, bx2, by2)
-        il0w = il0 * m0[:, None] * _QSCALE
-        il1w = il1 * m1[:, None] * _QSCALE
-        gate = (f[9] * (m0 * m1))[:, None]
-        dA, dAr, dAg, dAb, dA2, dL = d_planes[row].unbind(1)
-        cr, cg, cb = (x[:, None] for x in f[6:9])
-        d_alpha = (dA + dAr * cr + dAg * cg + dAb * cb + 2.0 * alpha * dA2
-                   - dL / (1.0 - alpha))
-        d_aw = torch.where(cov & (aw < ALPHA_MAX), d_alpha, 0.0)
-        dqn = d_aw * gate * w * (-2.0)       # d w / d n_i = -2 n_i w
-        dn0 = n0 * dqn
-        dn1 = n1 * dqn
-        sums.index_add_(1, idx, torch.stack([
-            d_aw * w,
-            -(dn0 * v0x * il0w + dn1 * v0y * il1w),
-            -(dn0 * v0y * il0w - dn1 * v0x * il1w),
-            dn0 * e0, dn1 * e1,
-            dn0 * dx * il0w - dn1 * dy * il1w,
-            dn0 * dy * il0w + dn1 * dx * il1w,
-            dAr * alpha, dAg * alpha, dAb * alpha]).sum(dim=2))
+        sums.index_add_(1, idx, _pair_cotangent_sums(f, pair, d_planes[row],
+                                                     bx2, by2))
     return _widening_bwd(fields, sums, bx2, by2)
+
+
+def _pair_cotangent_sums(f, pair, d_rows, bx2, by2):
+    """(10, L): each live pair's cotangents summed over its samples, from
+    its samples' plane cotangents d_rows (L, 6, n_samp): d gate, d sx, d sy,
+    d(il0 m0) and d(il1 m1) before the sqrt(32), the direct d v0x and d v0y,
+    d r, g, b."""
+    dx, dy, e0, e1, n0, n1, w, cov, aw, alpha = pair
+    v0x, v0y, il0, il1 = (x[:, None] for x in f[2:6])
+    _, _, m0, m1 = _widening(f, bx2, by2)
+    il0w = il0 * m0[:, None] * _QSCALE
+    il1w = il1 * m1[:, None] * _QSCALE
+    gate = (f[9] * (m0 * m1))[:, None]
+    dA, dAr, dAg, dAb, dA2, dL = d_rows.unbind(1)
+    cr, cg, cb = (x[:, None] for x in f[6:9])
+    d_alpha = (dA + dAr * cr + dAg * cg + dAb * cb + 2.0 * alpha * dA2
+               - dL / (1.0 - alpha))
+    d_aw = torch.where(cov & (aw < ALPHA_MAX), d_alpha, 0.0)
+    dqn = d_aw * gate * w * (-2.0)       # d w / d n_i = -2 n_i w
+    dn0 = n0 * dqn
+    dn1 = n1 * dqn
+    return torch.stack([
+        d_aw * w,
+        -(dn0 * v0x * il0w + dn1 * v0y * il1w),
+        -(dn0 * v0y * il0w - dn1 * v0x * il1w),
+        dn0 * e0, dn1 * e1,
+        dn0 * dx * il0w - dn1 * dy * il1w,
+        dn0 * dy * il0w + dn1 * dx * il1w,
+        dAr * alpha, dAg * alpha, dAb * alpha]).sum(dim=2)
 
 
 def _widening_bwd(fields, sums, bx2, by2):
@@ -464,6 +500,155 @@ def _widening_bwd(fields, sums, bx2, by2):
         d_cr, d_cg, d_cb, d_gate * m0 * m1])
 
 
+# ---------------------------------------------------------------------------
+# The unit walk of K7 and K9, in plain PyTorch
+# ---------------------------------------------------------------------------
+#
+# No compiler runs where the CPU tests do, so the walk the CUDA sources take
+# (csrc/tail_unit.cuh) is written out here once more and held against the
+# plain versions: units of SUB splats, the unit-level band and mask skip,
+# the packed bbox, the slot walk without a division, the live-pair worklist.
+
+def unit_may_be_live(band_g: int, mask_g, j: int, nsub: int, budget: int,
+                     k_bands: int) -> bool:
+    """Whether sub-block j of a chunk with band band_g and slot mask mask_g
+    (None: no mask) can hold a live pair: the kernels skip the unit before
+    any load otherwise. Slots past the mask's 30 bits stay live."""
+    if band_g < 0 or band_g >= k_bands:
+        return False
+    if mask_g is None:
+        return True
+    for s in range(budget):
+        if (s + 1) * nsub > MASK_BITS:
+            return True
+        if (mask_g >> (s * nsub + j)) & 1:
+            return True
+    return False
+
+
+def unit_worklists(meta, band, cut, slot_mask, k_bands: int, nx: int,
+                   chunk: int, budget: int, budget_lo: int = 0):
+    """The kernels' live-pair worklists: yields (u, idx, slot, tx, ty) for
+    every unit u that is not skipped, idx the listed pairs' splat indices
+    (int64, global, in slot-major order), slot their slots and (tx, ty)
+    their tiles. A unit is SUB splats of one chunk, or the whole chunk below
+    SUB. Per splat the walk keeps (ox, oy) and steps them with the slot
+    (`SlotWalk`): a splat outside the span window has span 0, a slot past
+    the bbox's rows ends the splat's walk, and the pair's key is held
+    against its tile's cut."""
+    npts = meta.shape[1]
+    unit = min(SUB, chunk)
+    nsub = chunk // unit
+    if chunk % unit or npts % chunk:
+        raise ValueError(f"chunk {chunk} is not a multiple of its unit, or "
+                         f"Np {npts} not of the chunk")
+    cut_pad = _cut_table(cut)
+    bands = band.tolist()
+    masks = None if slot_mask is None else slot_mask.tolist()
+    for u in range(npts // unit):
+        g, j = divmod(u, nsub)
+        if not unit_may_be_live(bands[g], None if masks is None else masks[g],
+                                j, nsub, budget, k_bands):
+            continue
+        tx0, tx1, ty0, ty1, dbits, span = meta[:, u * unit:(u + 1) * unit]
+        span = torch.where(_live_window(span, budget_lo, budget), span, 0)
+        # The packed bbox words: 16 bits each.
+        nxs = torch.clamp(tx1 - tx0 + 1, min=1, max=0xffff)
+        nrows = torch.clamp(ty1 - ty0 + 1, min=0, max=0xffff)
+        ox = torch.zeros_like(span)
+        oy = torch.zeros_like(span)
+        found = []
+        for s in range(int(span.max())):
+            tx = tx0 + ox
+            ty = ty0 + oy
+            tid = ty * nx + tx
+            key = (tid << QUANT_DEPTH_BITS) | dbits
+            live = ((s < span) & (oy < nrows)
+                    & (key > cut_pad[torch.clamp(tid, 0, CUT_ENTRIES - 1)
+                                     .long()]))
+            i = live.nonzero().squeeze(1)
+            found.append((u * unit + i, torch.full_like(i, s), tx[i], ty[i]))
+            ox = ox + 1
+            wrap = ox == nxs
+            ox = torch.where(wrap, 0, ox)
+            oy = oy + wrap.to(oy.dtype)
+        if found:
+            yield (u,) + tuple(torch.cat(x) for x in zip(*found))
+        else:
+            e = torch.zeros(0, dtype=torch.int64, device=meta.device)
+            yield u, e, e, e.to(torch.int32), e.to(torch.int32)
+
+
+def tail_accumulate_units(fields, meta, band, cut, params_row, k_bands: int,
+                          nx: int, ny: int, chunk: int, budget: int,
+                          s_cy: int, s_cx: int, budget_lo: int = 0,
+                          slot_mask=None, exact_clip: bool = False):
+    """tail_accumulate composed the way K7 composes it: unit by unit, the
+    samples of the unit's listed pairs evaluated, and the covered ones
+    (alpha > 0) alone added to the accumulator."""
+    n_samp = s_cy * s_cx
+    ny_pad = ny_padded(ny)
+    rows_per_band = nx * ny_pad
+    unit = min(SUB, chunk)
+    acc = torch.zeros((k_bands * rows_per_band, N_PLANES * n_samp),
+                      dtype=fields.dtype, device=meta.device)
+    flat = acc.view(-1)
+    jx, jy = _sample_grid(s_cy, s_cx, meta.device, fields.dtype)
+    for u, idx, _, tx, ty in unit_worklists(meta, band, cut, slot_mask,
+                                            k_bands, nx, chunk, budget,
+                                            budget_lo):
+        f = fields[:, idx]
+        alpha = _pair_samples(f, tx, ty, params_row, jx, jy, exact_clip)[-1]
+        k, j = (alpha > 0).nonzero(as_tuple=True)       # the hit queue
+        a = alpha[k, j]
+        row = (int(band[u * unit // chunk]) * rows_per_band
+               + tx[k].long() * ny_pad + ty[k].long())
+        base = row * (N_PLANES * n_samp) + j
+        planes = [a, a * f[6, k], a * f[7, k], a * f[8, k], a * a,
+                  torch.log1p(-a)]
+        for q, v in enumerate(planes):
+            flat.index_add_(0, base + q * n_samp, v)
+    return acc
+
+
+def tail_accumulate_bwd_units(fields, meta, band, cut, params_row, d_acc,
+                              k_bands: int, nx: int, ny: int, chunk: int,
+                              budget: int, s_cy: int, s_cx: int,
+                              budget_lo: int = 0, slot_mask=None,
+                              exact_clip: bool = False):
+    """tail_accumulate_bwd composed the way K9 composes it: unit by unit,
+    each splat's ten sums taken slot after slot over its own listed pairs,
+    then chained through the widening; zeros for a splat with no listed
+    pair and for every splat of a skipped unit."""
+    n_samp = s_cy * s_cx
+    ny_pad = ny_padded(ny)
+    rows_per_band = nx * ny_pad
+    unit = min(SUB, chunk)
+    d_planes = d_acc.reshape(-1, N_PLANES, n_samp)
+    bx2, by2 = params_row[6], params_row[7]
+    jx, jy = _sample_grid(s_cy, s_cx, meta.device, fields.dtype)
+    sums = fields.new_zeros((10, fields.shape[1]))
+    listed = torch.zeros(fields.shape[1], dtype=torch.bool,
+                         device=meta.device)
+    for u, idx, slot, tx, ty in unit_worklists(meta, band, cut, slot_mask,
+                                               k_bands, nx, chunk, budget,
+                                               budget_lo):
+        listed[u * unit:(u + 1) * unit] = True
+        row = (int(band[u * unit // chunk]) * rows_per_band
+               + tx.long() * ny_pad + ty.long())
+        for s in slot.unique().tolist():         # a thread's slots, in order
+            at = (slot == s).nonzero().squeeze(1)
+            f = fields[:, idx[at]]
+            pair = _pair_samples(f, tx[at], ty[at], params_row, jx, jy,
+                                 exact_clip)
+            sums[:, idx[at]] += _pair_cotangent_sums(f, pair,
+                                                     d_planes[row[at]], bx2,
+                                                     by2)
+    out = _widening_bwd(fields, sums, bx2, by2)
+    window = _live_window(meta[5], budget_lo, budget) & listed
+    return torch.where(window[None, :], out, 0.0)
+
+
 def _accumulate_fwd(fields, meta, band, rect, cut, params_row, slot_mask,
                     st):
     if _device(meta) == "cpu":
@@ -476,19 +661,22 @@ def _accumulate_fwd(fields, meta, band, rect, cut, params_row, slot_mask,
     ny_pad = ny_padded(st["ny"])
     acc = torch.zeros((st["k_bands"] * st["nx"] * ny_pad, N_PLANES * n_samp),
                       dtype=torch.float32, device=meta.device)
-    mask = _mask_arg(slot_mask)
-    cut_t = _cut_table(cut).contiguous()
+    band, band_stride = _strided_arg(band)
+    mask, mask_stride = _strided_arg(slot_mask)
+    _check_cut(cut)
+    # K7 adds straight to the accumulator and stages no window: the
+    # prepass's rect is not passed on.
     TAIL_ACCUMULATE(fields.contiguous(),
                     meta.contiguous(),
-                    band.to(torch.int32).contiguous(),
-                    rect.to(torch.int32).contiguous(),
+                    band,
                     mask,
-                    cut_t,
+                    cut.to(torch.int32).contiguous(),
                     params_row.to(torch.float32).contiguous(),
                     acc, npts, npts // st["chunk"], st["chunk"],
                     st["budget"], st["budget_lo"], st["nx"], ny_pad,
                     st["s_cx"], n_samp, st["k_bands"], int(st["exact_clip"]),
-                    SUB, stream=_stream(meta))
+                    band_stride, mask_stride, cut.shape[0],
+                    stream=_stream(meta))
     return acc
 
 
@@ -497,35 +685,34 @@ def tail_accumulate_bwd(fields, meta, band, cut, params_row, d_acc,
                         chunk: int, budget: int, s_cy: int, s_cx: int,
                         budget_lo: int = 0, exact_clip: bool = False):
     """d_fields (10, Np) of tail_accumulate: a CPU tensor runs
-    tail_accumulate_bwd_plain, a CUDA tensor launches K9 (which takes
-    n_samp = s_cy * s_cx a power of two up to 32)."""
+    tail_accumulate_bwd_plain, a CUDA tensor launches K9 (any sample grid
+    K7 takes)."""
     if _device(meta) == "cpu":
         return tail_accumulate_bwd_plain(fields, meta, band, cut, params_row,
                                          d_acc, k_bands, nx, ny, chunk,
                                          budget, s_cy, s_cx, budget_lo,
                                          exact_clip)
     n_samp = s_cy * s_cx
-    if n_samp > 32 or n_samp & (n_samp - 1):
-        raise ValueError(f"the tail backward kernel takes s_cy * s_cx a "
-                         f"power of two up to 32, got {n_samp}")
     npts = meta.shape[1]
     ny_pad = ny_padded(ny)
     if d_acc.shape != (k_bands * nx * ny_pad, N_PLANES * n_samp):
         raise ValueError(f"d_acc has shape {tuple(d_acc.shape)}")
     d_fields = torch.empty((10, npts), dtype=torch.float32,
                            device=meta.device)
-    mask = _mask_arg(slot_mask)
-    cut_t = _cut_table(cut).contiguous()
+    band, band_stride = _strided_arg(band)
+    mask, mask_stride = _strided_arg(slot_mask)
+    _check_cut(cut)
     TAIL_ACCUMULATE_BWD(fields.contiguous(),
                         meta.contiguous(),
-                        band.to(torch.int32).contiguous(),
+                        band,
                         mask,
-                        cut_t,
+                        cut.to(torch.int32).contiguous(),
                         params_row.to(torch.float32).contiguous(),
                         d_acc.to(torch.float32).contiguous(),
                         d_fields, npts, npts // chunk, chunk,
                         budget, budget_lo, nx, ny_pad, s_cx, n_samp, k_bands,
-                        int(exact_clip), stream=_stream(meta))
+                        int(exact_clip), band_stride, mask_stride,
+                        cut.shape[0], stream=_stream(meta))
     return d_fields
 
 
@@ -561,7 +748,8 @@ def tail_accumulate(fields, meta, band, rect, cut, params_row, k_bands: int,
 
     fields (10, <=Np) f32 (zero-padded to Np here when shorter); meta (6,
     Np) i32, Np a multiple of chunk; band (S,) i32; rect (S, 4) i32 from the
-    prepass (the kernel stages that window in shared memory); cut (T,) i32;
+    prepass (checked for its shape; the kernel no longer reads it); cut (T,)
+    i32;
     params_row (8,) f32; slot_mask (S,) i32 or None (no skipping). A pair of
     slot s is live iff s < span, budget_lo < span <= budget, the slot's row
     lies in the bbox, and its key exceeds cut[tile].
@@ -596,5 +784,8 @@ def tail_accumulate(fields, meta, band, rect, cut, params_row, k_bands: int,
     st = dict(k_bands=k_bands, nx=nx, ny=ny, chunk=chunk, budget=budget,
               s_cy=s_cy, s_cx=s_cx, budget_lo=budget_lo,
               exact_clip=exact_clip)
+    if not (torch.is_grad_enabled() and fields.requires_grad):
+        return _accumulate_fwd(fields, meta, band, rect, cut, params_row,
+                               slot_mask, st)
     return _TailAccumulate.apply(fields, meta, band, rect, cut, params_row,
                                  slot_mask, st)
