@@ -15,7 +15,14 @@ on the same card at each of those call sites. Phases:
   (a) the card, its power limit, the kernel builds;
   non-converged path (exact head, progressive deepening):
   (b) K3 sample_blocks, (c) K2 rowsort_compact, (d) K1 composite (pass 1
-      and one deepening pass), each with the kernel and plain times;
+      and one deepening pass), each with the kernel and plain times. K2 is
+      held against its plain version exactly (kept keys, values, live
+      counts, dropped) here and at every later site, with the share of rows
+      that outgrew their list and took the full network, and launched twice
+      to show bit-for-bit equality; in (c) also without its cut, and on
+      synthetic rows made from a seed that force every branch (0, keep - 1,
+      keep, keep + 1, capacity, capacity + 1 and row_len live keys, rows of
+      equal keys, a ragged slot count, row_len 256 and 8192, a wide keep);
   (e) a 20K-splat 512x256 frame on the card (kernels) against the CPU
       (plain versions): binning from one projection equal up to the order
       of tied pairs, the composite of one binning within 1e-5, and the
@@ -60,17 +67,20 @@ on the same card at each of those call sites. Phases:
   the kernel-sorted frame (`sort_backend="pallas"` with a power-of-two keep
   of 512: the prune as its own pass, a row sort that compacts the slots
   into 4,096 alternating rows, the rows merged by kernels):
-  (m) K10 apply_cutkeys and K11-K13 (merge tree, every cross stage, every
+  (m) K10 apply_cutkeys and K11-K13 (merge tree, every cross pass, every
       finishing pass) against their plain versions at the inputs one such
-      10M frame gives them, keys exact and (key, value) multisets equal; the
-      whole `merge_sorted_rows` against `torch.sort` (keys, multisets,
-      sortedness, live count) in both row-direction forms, timed beside
-      `torch.sort` + gather; the compacting row sort timed on its own;
+      10M frame gives them, keys exact and (key, value) multisets equal;
+      every multi-stage pass of K12 exactly equal to its single stages and
+      each single stage (the kernel with one stage) to plain; the whole
+      `merge_sorted_rows`, its launches after K11 enqueued by one host
+      call, against `torch.sort` (keys, multisets, sortedness, live count)
+      in both row-direction forms, timed beside `torch.sort` + gather; the
+      compacting row sort timed on its own;
   (n) the 20K-splat converged frame under the merge kernels, card against
       CPU, and on the card against the default sort backend: integer
       binning outputs and per-tile pair multisets equal, the image within
       the tie-order tolerance;
-  (o) the full kernel-sorted frame: launch counts (K10 1, K11 1, K12 28,
+  (o) the full kernel-sorted frame: launch counts (K10 1, K11 1, K12 10,
       K13 7, K2 0, the rest as (i)), counters 0, the median beside (i)'s;
   the 4K frame (3840x2160: 135 x 30 = 4,050 tiles in two bands of tile
   rows, each band through the whole converged path with band-relative ids):
@@ -340,26 +350,58 @@ def phase_sample_blocks(tag, calls, n_sites):
     return _sites(sites)
 
 
-def _kept_pairs(ok, ov, live, boundary_only):
-    """Per-row (key, val) pairs over live kept slots as an int64 (keep,
-    rows) array with every row sorted (unkept slots -> int64 max). With
-    boundary_only, rows that dropped pairs keep only keys below their last
-    kept key: tied pairs at the keep boundary may be either."""
+def _k2_exact(tag, key, val, keep, row_len, cut, shift):
+    """K2 against its plain version on one input: kept keys, values, live
+    counts and dropped all exactly equal, and a second launch equal to the
+    first bit for bit. Returns (kept keys, live, dropped)."""
     import torch
-    keep = ok.shape[0]
-    mask = ok != 0x7FFFFFFF
-    if boundary_only:
-        full = live <= keep
-        mask &= full[None, :] | (ok < ok[-1:, :])
-    pairs = (ok.long() << 32) | (ov.long() & 0xFFFFFFFF)
-    pairs = torch.where(mask, pairs, torch.iinfo(torch.int64).max)
-    return torch.sort(pairs, dim=0).values
+    from fourdgs_torch.ops import sort_cuda as S
+    ok, ov, live, dropped = S._rowsort_compact_live(key, val, keep, row_len,
+                                                    cut, shift)
+    pk, pv, p_live = S.rowsort_compact_plain(key, val, keep, row_len, cut,
+                                             shift)
+    p_dropped = int(torch.clamp(p_live - keep, min=0).sum())
+    ok2, ov2, live2, dropped2 = S._rowsort_compact_live(key, val, keep,
+                                                        row_len, cut, shift)
+    torch.cuda.synchronize()
+    check(torch.equal(ok, pk), f"{tag}: kept keys differ from plain")
+    check(torch.equal(ov, pv), f"{tag}: kept values differ from plain")
+    check(torch.equal(live, p_live), f"{tag}: live counts differ from plain")
+    check(int(dropped) == p_dropped, f"{tag}: dropped {int(dropped)} vs "
+          f"plain {p_dropped}")
+    check(torch.equal(ok, ok2) and torch.equal(ov, ov2)
+          and torch.equal(live, live2) and int(dropped) == int(dropped2),
+          f"{tag}: a second launch differs from the first")
+    return ok, live, int(dropped)
+
+
+def _k2_moved(key, keep, row_len, cut, shift, ok, live):
+    """Bytes K2's function must move on this input: every key, the cut
+    table, both outputs and the live counts once, and of the values only
+    the kept slots', counted as the distinct 32-byte sectors that hold them
+    (the least a read of device memory moves)."""
+    import torch
+    from fourdgs_torch.ops import sort_cuda as S
+    k2, _ = S._cut_rows(key, key, row_len, cut, shift)
+    order = torch.sort(k2, dim=0, stable=True).indices[:keep]
+    kept = torch.gather(k2, 0, order) != S.DEAD
+    rows = k2.shape[1]
+    at = (order * rows + torch.arange(rows, device=key.device))[kept]
+    sectors = int(torch.unique(at >> 3).numel())
+    return nbytes(key, cut, live) + 2 * nbytes(ok) + 32 * sectors, sectors
+
+
+def _overflow_share(live, keep):
+    """Share of rows whose live slots exceed K2's list (the rows that take
+    the full network), and the list's capacity."""
+    from fourdgs_torch.ops import sort_cuda as S
+    cap = S._list_cap(keep)
+    return (1.0 if cap is None else float((live > cap).float().mean())), cap
 
 
 def phase_rowsort(tag, calls, also_no_cut):
     """K2 at the path's one call site; with `also_no_cut`, also without its
     cut (the reference's second call form of the kernel)."""
-    import torch
     from fourdgs_torch.ops import sort_cuda as S
     check(len(calls) == 1, f"{tag} K2: {len(calls)} calls in one frame")
     (key, val, keep), kw = calls[0]
@@ -367,41 +409,91 @@ def phase_rowsort(tag, calls, also_no_cut):
     lines, sites = [], []
     forms = (("cut", cut),) + ((("no cut", None),) if also_no_cut else ())
     for label, c in forms:
-        ok, ov, dropped = S.rowsort_compact(key, val, keep, row_len=row_len,
-                                            cut=c, key_shift=shift)
-        pk, pv, live = S.rowsort_compact_plain(key, val, keep, row_len, c,
-                                               shift)
-        p_dropped = live.sum() - (pk != S.DEAD).sum()
-        torch.cuda.synchronize()
-        check(torch.equal(ok, pk), f"{tag} K2 ({label}): kept keys differ")
-        check(int(dropped) == int(p_dropped), f"{tag} K2 ({label}): dropped "
-              f"{int(dropped)} vs plain {int(p_dropped)}")
-        boundary_only = int(p_dropped) > 0
-        check(torch.equal(_kept_pairs(ok, ov, live, boundary_only),
-                          _kept_pairs(pk, pv, live, boundary_only)),
-              f"{tag} K2 ({label}): kept (key, val) multisets differ")
+        ok, live, dropped = _k2_exact(f"{tag} K2 ({label})", key, val, keep,
+                                      row_len, c, shift)
+        share, cap = _overflow_share(live, keep)
         ms = cuda_ms(lambda: S.rowsort_compact(key, val, keep, row_len, c,
                                                shift), reps=20)
         def plain():
-            k, _, n_live = S.rowsort_compact_plain(key, val, keep, row_len,
+            _, _, n_live = S.rowsort_compact_plain(key, val, keep, row_len,
                                                    c, shift)
-            return n_live.sum() - (k != S.DEAD).sum()
+            return (n_live - keep).clamp(min=0).sum()
         plain_ms = cuda_ms(plain, reps=5)
         stages = row_len.bit_length() * (row_len.bit_length() - 1) // 2
+        moved, sectors = _k2_moved(key, keep, row_len, c, shift, ok, live)
         form = site(f"{key.shape[0]:,} slots, keep {keep}, {label}", 0.0, ms,
-                    plain_ms, nbytes(key, val, c, ok, ov, live),
+                    plain_ms, moved,
                     ok.shape[1] * (row_len // 2) * stages * CMPX_OPS)
         if c is not None:           # the form the path launches
             sites.append(form)
-        lines.append(f"{label}: dropped {int(dropped):,}, live "
-                     f"{int(live.sum()):,}, multisets "
-                     f"{'below the boundary key' if boundary_only else 'all live'}"
-                     f" equal, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                     f"bound {form['bound_ms']:.3f} ms ({form['bound_by']})")
+        lines.append(f"{label}: keys, values, live and dropped "
+                     f"({dropped:,}) equal plain exactly, live "
+                     f"{int(live.sum()):,} (most in a row {int(live.max())}), "
+                     f"{share:.4%} of rows above the list's {cap} take the "
+                     f"full network, a second launch bit-equal; kernel "
+                     f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                     f"{form['bound_ms']:.3f} ms ({form['bound_by']}: "
+                     f"{moved / 1e6:.1f} MB, the keys, the outputs and the "
+                     f"{sectors:,} sectors of the kept slots' values)")
     print(f"{tag} K2 rowsort_compact: {key.shape[0]:,} slots, row_len "
           f"{row_len}, keep {keep}, {ok.shape[1]:,} rows, cut table "
           f"{cut.shape[0]} tiles; " + "; ".join(lines))
     return _sites(sites)
+
+
+def phase_rowsort_branches(dev):
+    """(c) K2 on rows made with numpy from a seed so that every branch of
+    the kernel runs: rows of 0, keep - 1, keep, keep + 1, cap, cap + 1 and
+    row_len live keys (the list, its three register depths, the overflow
+    path), rows of equal keys, a slot count that is no multiple of the
+    rows, row_len 256 and 8192, a keep too wide for lists, with and without
+    a cut. Everything is held against plain exactly."""
+    import numpy as np
+    import torch
+    from fourdgs_torch.ops import sort_cuda as S
+    rng = np.random.default_rng(6)
+    n_tiles, shift = 40, 20
+    cut = torch.from_numpy(((np.arange(n_tiles) << shift)
+                            | (1 << 19)).astype(np.int32)).to(dev)
+    lines = []
+    for row_len, keep, s_short in ((512, 32, 0), (512, 48, 777),
+                                   (512, 100, 5), (256, 32, 0),
+                                   (8192, 32, 12345), (256, 192, 3)):
+        cap = S._list_cap(keep) or row_len
+        rows = 256
+        counts = [0, 1, keep - 1, keep, keep + 1, 33, 64, 65, cap, cap + 1,
+                  row_len]
+        counts = np.array([min(c, row_len) for c in counts])
+        per_row = counts[np.arange(rows) % len(counts)]
+        key2 = np.full((row_len, rows), S.DEAD, dtype=np.int32)
+        for r in range(rows):
+            at = rng.choice(row_len, per_row[r], replace=False)
+            tile = rng.integers(0, n_tiles, per_row[r])
+            # Rows 0-63 hold equal keys (one tile, one depth); the others
+            # depths below the cut (kept) and, every other row, above it.
+            depth = np.full(per_row[r], 7) if r < 64 else rng.integers(
+                0, (1 << 19) if r % 2 else (1 << 20), per_row[r])
+            key2[at, r] = ((tile if r >= 64 else 3) << shift) | depth
+        key = key2.reshape(-1)[:row_len * rows - s_short]
+        val = rng.permutation(key.shape[0]).astype(np.int32)
+        k, v = torch.from_numpy(key.copy()).to(dev), \
+            torch.from_numpy(val).to(dev)
+        for label, c in (("cut", cut), ("no cut", None)):
+            tag = (f"(c) K2 synthetic rows (row_len {row_len}, keep {keep}, "
+                   f"{key.shape[0]:,} slots, {label})")
+            _, live, dropped = _k2_exact(tag, k, v, keep, row_len, c, shift)
+            share, _ = _overflow_share(live, keep)
+            got = set(live.unique().tolist())
+            if c is None:
+                want = set(np.unique(per_row[:live.shape[0]]).tolist())
+                check(s_short or got == want, f"{tag}: live counts "
+                      f"{sorted(got)} are not the rows' {sorted(want)}")
+            lines.append(f"row_len {row_len} keep {keep} {label}: "
+                         f"{len(got)} distinct live counts up to "
+                         f"{max(got)}, dropped {dropped:,}, {share:.1%} of "
+                         f"rows through the full network")
+    print("(c) K2 synthetic rows, keys, values, live and dropped equal plain "
+          "exactly and a second launch bit-equal: " + "; ".join(lines))
 
 
 def _carry_err(got, want):
@@ -1323,13 +1415,18 @@ def phase_sort_kernels(captured):
         whole[alt] = cuda_ms(lambda: S.merge_sorted_rows(
             rk, rv, rows_alternating=alt), 10)
     lib_ms = cuda_ms(library, 10)
-    steps = S.merge_schedule(n, S.MERGE_BLOCK)
+    steps = S.merge_schedule(n, S.MERGE_BLOCK, S.CROSS_GROUP)
+    single = S.merge_schedule(n, S.MERGE_BLOCK)
     n_cross = sum(st[0] == "cross" for st in steps)
+    n_stages = sum(st[0] == "cross" for st in single)
+    check(sum(st[3] for st in steps if st[0] == "cross") == n_stages,
+          "(m) the grouped schedule does not hold the single stages")
     print(f"(m) merge_sorted_rows: {k2.shape[0]:,} rows x {k2.shape[1]} = "
           f"{n:,} pairs, {int((k2 != S.DEAD).sum()):,} live: keys equal "
           f"torch.sort, (key, value) multisets equal, sorted, live count "
           f"conserved, in both row forms; 1 + {n_cross} + "
-          f"{len(steps) - n_cross} launches {whole[True]:.4f} ms "
+          f"{len(steps) - n_cross} launches ({n_stages} cross stages), the "
+          f"ones after K11 enqueued by one host call, {whole[True]:.4f} ms "
           f"(all-ascending rows {whole[False]:.4f} ms); torch.sort + gather "
           f"{lib_ms:.4f} ms")
     del asc_k, asc_v, gk, gv, wk, wv
@@ -1356,65 +1453,106 @@ def phase_sort_kernels(captured):
           f"ms, plain {plain_ms:.4f} ms")
     del gk, gv, pk, pv
 
-    # K12 at every call (plain swaps strictly too, so values are exact).
-    sites, worst = [], None
-    calls = captured["sort_cuda.merge_cross_stage"]
-    check(len(calls) == n_cross, f"(m) K12: {len(calls)} calls, the schedule "
-          f"has {n_cross}")
-    for args, _ in calls:
-        key, val, d, run_out = args
-        gk, gv = S.merge_cross_stage(key.clone(), val.clone(), d, run_out)
-        pk, pv = S.merge_cross_stage_plain(key, val, d, run_out)
-        torch.cuda.synchronize()
-        check(torch.equal(gk, pk) and torch.equal(gv, pv),
-              f"(m) K12 merge_cross_stage (d {d}, run {run_out}) differs "
-              f"from plain")
-        ms = _net_ms(S.merge_cross_stage, args, 10)
-        plain_ms = cuda_ms(lambda: S.merge_cross_stage_plain(*args), 3)
-        sites.append(site(f"d {d:,}, run {run_out:,}", 0.0, ms, plain_ms,
-                          2 * nbytes(key, val), n // 2 * CMPX_OPS))
-        if worst is None or ms > worst[0]:
-            worst = (ms, d, run_out)
-    k12 = results["K12 merge_cross_stage"] = _sites(sites)
-    first = sites[0]
-    far = sites[max(range(len(calls)), key=lambda i: calls[i][0][2])]
-    print(f"(m) K12 merge_cross_stage: {len(sites)} calls, each exact "
-          f"against plain (keys and values); first ({first['site']}) "
-          f"{first['ms']:.4f} ms, largest distance ({far['site']}) "
-          f"{far['ms']:.4f} ms, slowest {worst[0]:.4f} ms (d {worst[1]:,}); "
-          f"all {k12['ms']:.4f} ms, plain {k12['plain_ms']:.4f} ms")
-
-    # K13 at every call.
-    sites = []
-    calls = captured["sort_cuda.merge_finish"]
-    check(len(calls) == len(steps) - n_cross, f"(m) K13: {len(calls)} calls")
-    for args, _ in calls:
-        key, val, run_out, block = args
-        gk, gv = S.merge_finish(key.clone(), val.clone(), run_out, block)
-        pk, pv = S.merge_finish_plain(key, val, block, run_out)
-        torch.cuda.synchronize()
-        check(torch.equal(gk, pk), f"(m) K13 merge_finish (run {run_out}): "
-              f"keys differ from plain")
-        check(_same_pairs(gk, gv, pk, pv, run=block), f"(m) K13 merge_finish "
-              f"(run {run_out}): a block's multiset differs from plain")
-        ms = _net_ms(S.merge_finish, args, 10)
-        plain_ms = cuda_ms(lambda: S.merge_finish_plain(key, val, block,
-                                                        run_out), 3)
-        sites.append(site(f"run {run_out:,}", 0.0, ms, plain_ms,
-                          2 * nbytes(key, val),
-                          n // 2 * (block.bit_length() - 1) * CMPX_OPS))
-    results["K13 merge_finish"] = _sites(sites)
-    print(f"(m) K13 merge_finish: {len(sites)} calls "
+    # K12 and K13 at every launch of the schedule, walked from what the
+    # frame handed merge_levels (K11's output). A pass of K12 is held
+    # against its single stages run by the plain version one after the
+    # other, and each of those against the kernel with one stage (the plain
+    # version swaps strictly too, so keys and values are exact); K13 against
+    # its plain version, keys exact and every block's multiset equal.
+    check(len(captured["sort_cuda.merge_levels"]) == 1, "(m) merge_levels: "
+          "not one call")
+    (key, val, lv_block), _ = captured["sort_cuda.merge_levels"][0]
+    check(lv_block == block, f"(m) merge_levels block {lv_block}")
+    k12_sites, k13_sites, single_ms, worst = [], [], 0.0, None
+    for st in steps:
+        if st[0] == "cross":
+            _, d_hi, run_out, size = st
+            gk, gv = S.merge_cross_stages(key.clone(), val.clone(), d_hi,
+                                          size, run_out)
+            pk, pv = key, val
+            for i in range(size):
+                d = d_hi >> i
+                sk, sv = S.merge_cross_stage(pk.clone(), pv.clone(), d,
+                                             run_out)
+                pk, pv = S.merge_cross_stage_plain(pk, pv, d, run_out)
+                torch.cuda.synchronize()
+                check(torch.equal(sk, pk) and torch.equal(sv, pv),
+                      f"(m) K12 merge_cross_stage (d {d}, run {run_out}) "
+                      f"differs from plain")
+                single_ms += _net_ms(S.merge_cross_stage,
+                                     (key, val, d, run_out), 10)
+            check(torch.equal(gk, pk) and torch.equal(gv, pv),
+                  f"(m) K12 merge_cross_stages (d {d_hi}, {size} stages, run "
+                  f"{run_out}) differs from its {size} single stages")
+            args = (key, val, d_hi, size, run_out)
+            ms = _net_ms(S.merge_cross_stages, args, 10)
+            plain_ms = cuda_ms(lambda: S.merge_cross_stages_plain(*args), 3)
+            k12_sites.append(site(
+                f"d {d_hi:,}, {size} stages, run {run_out:,}", 0.0, ms,
+                plain_ms, 2 * nbytes(key, val), n // 2 * size * CMPX_OPS))
+            if worst is None or ms > worst[0]:
+                worst = (ms, d_hi, size)
+            key, val = pk, pv
+        else:
+            run_out = st[1]
+            gk, gv = S.merge_finish(key.clone(), val.clone(), run_out, block)
+            pk, pv = S.merge_finish_plain(key, val, block, run_out)
+            torch.cuda.synchronize()
+            check(torch.equal(gk, pk), f"(m) K13 merge_finish (run "
+                  f"{run_out}): keys differ from plain")
+            check(_same_pairs(gk, gv, pk, pv, run=block), f"(m) K13 "
+                  f"merge_finish (run {run_out}): a block's multiset differs "
+                  f"from plain")
+            args = (key, val, run_out, block)
+            ms = _net_ms(S.merge_finish, args, 10)
+            plain_ms = cuda_ms(lambda: S.merge_finish_plain(
+                key, val, block, run_out), 3)
+            k13_sites.append(site(
+                f"run {run_out:,}", 0.0, ms, plain_ms, 2 * nbytes(key, val),
+                n // 2 * (block.bit_length() - 1) * CMPX_OPS))
+            key, val = gk, gv
+    check(bool(SC.is_sorted(key)[0]), "(m) the walked schedule did not sort")
+    k12 = results["K12 merge_cross_stage"] = _sites(k12_sites)
+    # The path enqueues the passes from C: the kernel's time is theirs so,
+    # the sum of the sites' (a host call each) rides along.
+    (key, val, _), _ = captured["sort_cuda.merge_levels"][0]
+    k12["ms_a_call_each"] = k12["ms"]
+    crosses = [st for st in steps if st[0] == "cross"]
+    k12["ms"] = _net_ms(S._enqueue_levels, (key, val, block, crosses), 10)
+    # The passes of one merge work on one pair of arrays that fits the
+    # card's L2: from device memory they must together move one read and
+    # one write of it, not one a pass (a site's bound is its launch alone).
+    once = site("", 0.0, 0.0, 0.0, 2 * nbytes(key, val),
+                n // 2 * n_stages * CMPX_OPS)
+    k12["bound_ms"], k12["bound_by"] = once["bound_ms"], once["bound_by"]
+    print(f"(m) K12 merge_cross_stage: {len(k12_sites)} passes "
+          f"({', '.join(str(st[3]) for st in steps if st[0] == 'cross')} "
+          f"stages), each exactly equal to its single stages, and each of "
+          f"the {n_stages} single stages exactly equal to plain (keys and "
+          f"values); slowest pass {worst[0]:.4f} ms (d {worst[1]:,}, "
+          f"{worst[2]} stages); all passes enqueued by one host call "
+          f"{k12['ms']:.4f} ms, a host call each {k12['ms_a_call_each']:.4f} "
+          f"ms (the {n_stages} single stages so: {single_ms:.4f} ms), plain "
+          f"{k12['plain_ms']:.4f} ms, bound {k12['bound_ms']:.4f} ms (one "
+          f"read and one write of the arrays from device memory; they stay "
+          f"in L2 between the passes)")
+    k13 = results["K13 merge_finish"] = _sites(k13_sites)
+    print(f"(m) K13 merge_finish: {len(k13_sites)} calls "
           f"({block.bit_length() - 1} stages in shared memory each), keys "
           f"exact, blocks' multisets equal; "
-          f"{', '.join(format(x['ms'], '.4f') for x in sites)} ms, all "
-          f"{results['K13 merge_finish']['ms']:.4f} ms, plain "
-          f"{results['K13 merge_finish']['plain_ms']:.4f} ms")
+          f"{', '.join(format(x['ms'], '.4f') for x in k13_sites)} ms, all "
+          f"{k13['ms']:.4f} ms, plain {k13['plain_ms']:.4f} ms")
+    # The launches after K11 as the path enqueues them: one host call.
+    levels_ms = _net_ms(S.merge_levels, (key, val, block), 10)
+    print(f"(m) merge_levels: the {len(steps)} launches after K11 enqueued "
+          f"by one host call {levels_ms:.4f} ms (a host call each: K12 "
+          f"{k12['ms_a_call_each']:.4f} + K13 {k13['ms']:.4f} ms)")
     # The whole function's numbers ride on K11's entry.
     results["K11 merge_tree"]["merge_sorted_rows"] = dict(
         ms=whole[True], all_ascending_ms=whole[False], library_ms=lib_ms,
         library="torch.sort of the keys + gather of the values",
-        compact_pairs_ms=compact_ms)
+        compact_pairs_ms=compact_ms, merge_levels_ms=levels_ms,
+        single_stages_ms=single_ms)
     for name in ("K11 merge_tree", "K12 merge_cross_stage",
                  "K13 merge_finish"):
         # One PyTorch call computes the whole merge, none a part of it.
@@ -1632,6 +1770,7 @@ def main() -> int:
             "(d)", captured["pipeline.composite_records"],
             captured["pipeline.composite_records_at"]),
     }}
+    phase_rowsort_branches(dev)
     del captured
     # (e) card against CPU on a small frame.
     phase_small_frame(dev, converged=False)
@@ -1722,7 +1861,7 @@ def main() -> int:
         params, camera, cfg_sorted,
         [(TT, "apply_cutkeys"), (TT, "compact_pairs"),
          (TT, "merge_sorted_rows"), (sort_cuda, "merge_tree"),
-         (sort_cuda, "merge_cross_stage"), (sort_cuda, "merge_finish")])
+         (sort_cuda, "merge_levels")])
     torch.cuda.synchronize()
     print(f"    kernel-sorted capture frame {time.time() - t0:.1f} s")
     # (m) K10-K13 at that frame's inputs.
@@ -1737,7 +1876,7 @@ def main() -> int:
     # (o) the full kernel-sorted frame.
     steps = sort_cuda.merge_schedule(
         sort_cuda.merged_rows(MERGE_ROWS, MERGE_KEEP) * MERGE_KEEP,
-        sort_cuda.MERGE_BLOCK)
+        sort_cuda.MERGE_BLOCK, sort_cuda.CROSS_GROUP)
     n_cross = sum(st[0] == "cross" for st in steps)
     launches[sorted_path], _, med_sorted, _ = phase_full_frame(
         "(o)", params, camera, cfg_sorted, kernels,

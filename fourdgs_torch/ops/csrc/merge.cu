@@ -20,23 +20,36 @@
 //     when the caller's rows are all ascending, runs every level from runs
 //     of C up to runs of B there, and writes its run once. One launch where
 //     the TPU version pays one call per level.
-//   K12 fourdgs_merge_cross_stage: one stage at a distance d >= B over the
-//     whole array in device memory, one thread a pair, in place (a thread
-//     owns both elements of its pair).
+//   K12 fourdgs_merge_cross_stages: up to four consecutive stages at
+//     distances d_hi, d_hi / 2 ... d_lo >= B of one level in one pass over
+//     the array in device memory, in place. A thread loads the 2^s elements
+//     whose indices differ only in the s bits log2(d_lo) ... log2(d_hi),
+//     runs the s stages on them in registers and stores them: it owns every
+//     element it touches, so no two threads meet within a pass, and since
+//     2 * d_hi <= run_out all its elements lie in one run, whose direction
+//     it takes once. Neighbouring threads take neighbouring low-bit indices:
+//     every load and store is a full line. s = 1 is the single stage.
 //   K13 fourdgs_merge_finish: a block loads B contiguous elements and runs
 //     the stages d = B/2 ... 1 of one level in shared memory, in place.
+//
+//   fourdgs_merge_levels: every launch after K11 (K12's passes and K13's
+//     finishes, in the order the caller's schedule lists them) enqueued on
+//     the caller's stream by one host call.
 //
 // Bound on the H100: the arrays are small (16.8 MB at the 2^21 pairs of the
 // 10M-splat frame, one read and one write in 0.010 ms) and stay in the
 // 50 MB L2 between launches, so neither device memory nor arithmetic binds:
-// the cost is the number of launches (1 + 28 + 7 there) and of
-// shared-memory stages with a block-wide barrier each (60 in K11, 14 per
-// K13). The TPU kernels keep 262,144 elements resident in fast memory; a
-// Hopper block has 227 KB of shared memory, so B is 16,384 pairs (128 KB)
-// and the levels above it go through K12. Design: the simplest network that
-// is right; each thread takes pairs a whole block apart, which is free of
-// bank conflicts for d >= 32. Register-resident last stages and several
-// cross stages in one launch are left to later changes.
+// the cost is the number of launches and of shared-memory stages with a
+// block-wide barrier each (60 in K11, 14 per K13). The TPU kernels keep
+// 262,144 elements resident in fast memory; a Hopper block has 227 KB of
+// shared memory, so B is 16,384 pairs (128 KB) and the levels above it go
+// through K12. Design: a level with k stages above B takes ceil(k / 4)
+// passes of K12 instead of k, so the 28 cross stages of 2^21 pairs are 10
+// launches and 10 passes over the array, and the whole schedule is enqueued
+// from C, which takes the per-launch cost of a foreign-function call out.
+// In K11 and K13 each thread takes pairs a whole block apart, which is free
+// of bank conflicts for d >= 32; register-resident last stages there are
+// left to a later change.
 
 #include <cuda_runtime.h>
 
@@ -105,24 +118,48 @@ merge_tree_kernel(const int* __restrict__ key, const int* __restrict__ val,
   }
 }
 
+// S stages at distances d_lo << (S - 1) ... d_lo, one thread 2^S elements.
+template <int S>
 __global__ void __launch_bounds__(kCrossThreads)
-merge_cross_stage_kernel(int* __restrict__ key, int* __restrict__ val,
-                         long long pairs, long long d, int run_shift,
-                         int alternate) {
-  const long long p =
+merge_cross_stages_kernel(int* __restrict__ key, int* __restrict__ val,
+                          long long groups, int lo_shift, int run_shift,
+                          int alternate) {
+  constexpr int kElems = 1 << S;
+  const long long t =
       static_cast<long long>(blockIdx.x) * kCrossThreads + threadIdx.x;
-  if (p >= pairs) return;
-  const long long lo = ((p & ~(d - 1)) << 1) | (p & (d - 1));
-  const long long hi = lo + d;
-  const bool desc = alternate && ((lo >> run_shift) & 1);
-  const int ka = key[lo];
-  const int kb = key[hi];
-  if (desc ? (ka < kb) : (kb < ka)) {
-    key[lo] = kb;
-    key[hi] = ka;
-    const int va = val[lo];
-    val[lo] = val[hi];
-    val[hi] = va;
+  if (t >= groups) return;
+  const long long d_lo = 1LL << lo_shift;
+  const long long base =
+      ((t >> lo_shift) << (lo_shift + S)) | (t & (d_lo - 1));
+  const bool desc = alternate && ((base >> run_shift) & 1);
+  int k[kElems];
+  int v[kElems];
+#pragma unroll
+  for (int j = 0; j < kElems; ++j) {
+    k[j] = key[base + j * d_lo];
+    v[j] = val[base + j * d_lo];
+  }
+#pragma unroll
+  for (int h = kElems >> 1; h > 0; h >>= 1) {
+#pragma unroll
+    for (int j = 0; j < kElems; ++j) {
+      if ((j & h) == 0) {
+        const int ka = k[j];
+        const int kb = k[j | h];
+        if (desc ? (ka < kb) : (kb < ka)) {      // strict: ties never move
+          k[j] = kb;
+          k[j | h] = ka;
+          const int va = v[j];
+          v[j] = v[j | h];
+          v[j | h] = va;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kElems; ++j) {
+    key[base + j * d_lo] = k[j];
+    val[base + j * d_lo] = v[j];
   }
 }
 
@@ -193,23 +230,65 @@ extern "C" int fourdgs_merge_tree(const void* key, const void* val,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One stage at distance d of the level that makes runs of run_out elements,
-// in place. total, d, run_out powers of two, 2 * d <= run_out <= total.
-extern "C" int fourdgs_merge_cross_stage(void* key, void* val,
-                                         long long total, long long d,
-                                         long long run_out, void* stream) {
-  if (!pow2(total) || !pow2(d) || !pow2(run_out) || 2 * d > run_out ||
-      run_out > total) {
-    return static_cast<int>(cudaErrorInvalidValue);
+namespace {
+
+template <int S>
+cudaError_t launch_cross(int* key, int* val, long long total, long long d_hi,
+                         long long run_out, cudaStream_t stream) {
+  const long long groups = total >> S;
+  const long long blocks = (groups + kCrossThreads - 1) / kCrossThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  merge_cross_stages_kernel<S>
+      <<<static_cast<unsigned>(blocks), kCrossThreads, 0, stream>>>(
+          key, val, groups, host_log2(d_hi) - (S - 1), host_log2(run_out),
+          run_out < total ? 1 : 0);
+  return cudaGetLastError();
+}
+
+cudaError_t cross_stages(int* key, int* val, long long total, long long d_hi,
+                         int n_stages, long long run_out,
+                         cudaStream_t stream) {
+  if (!pow2(total) || !pow2(d_hi) || !pow2(run_out) || 2 * d_hi > run_out ||
+      run_out > total || n_stages < 1 || n_stages > 4 ||
+      (d_hi >> (n_stages - 1)) < 1) {
+    return cudaErrorInvalidValue;
   }
-  const long long pairs = total / 2;
-  const long long blocks = (pairs + kCrossThreads - 1) / kCrossThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  merge_cross_stage_kernel<<<static_cast<unsigned>(blocks), kCrossThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(key), static_cast<int*>(val), pairs, d,
-      host_log2(run_out), run_out < total ? 1 : 0);
-  return static_cast<int>(cudaGetLastError());
+  switch (n_stages) {
+    case 1: return launch_cross<1>(key, val, total, d_hi, run_out, stream);
+    case 2: return launch_cross<2>(key, val, total, d_hi, run_out, stream);
+    case 3: return launch_cross<3>(key, val, total, d_hi, run_out, stream);
+    default: return launch_cross<4>(key, val, total, d_hi, run_out, stream);
+  }
+}
+
+cudaError_t finish(int* key, int* val, long long total, int block,
+                   long long run_out, cudaStream_t stream) {
+  const size_t smem = pow2(block) ? block_smem(block) : 0;
+  if (!pow2(total) || !pow2(run_out) || smem == 0 || block < 2 ||
+      block > run_out || run_out > total) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = allow_smem(merge_finish_kernel, smem);
+  if (err != cudaSuccess) return err;
+  merge_finish_kernel<<<static_cast<unsigned>(total / block), kBlockThreads,
+                        smem, stream>>>(key, val, total, block,
+                                        host_log2(run_out),
+                                        run_out < total ? 1 : 0);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// n_stages (1 to 4) stages at distances d_hi, d_hi / 2 ... of the level that
+// makes runs of run_out elements, in place. total, d_hi, run_out powers of
+// two, 2 * d_hi <= run_out <= total, d_hi >= 2^(n_stages - 1).
+extern "C" int fourdgs_merge_cross_stages(void* key, void* val,
+                                          long long total, long long d_hi,
+                                          int n_stages, long long run_out,
+                                          void* stream) {
+  return static_cast<int>(cross_stages(
+      static_cast<int*>(key), static_cast<int*>(val), total, d_hi, n_stages,
+      run_out, static_cast<cudaStream_t>(stream)));
 }
 
 // The stages d = block/2 ... 1 of the level that makes runs of run_out
@@ -217,16 +296,34 @@ extern "C" int fourdgs_merge_cross_stage(void* key, void* val,
 extern "C" int fourdgs_merge_finish(void* key, void* val, long long total,
                                     int block, long long run_out,
                                     void* stream) {
-  const size_t smem = pow2(block) ? block_smem(block) : 0;
-  if (!pow2(total) || !pow2(run_out) || smem == 0 || block < 2 ||
-      block > run_out || run_out > total) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(finish(static_cast<int*>(key),
+                                 static_cast<int*>(val), total, block,
+                                 run_out,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+// The launches after K11, in place: steps is n_steps triples (d_hi,
+// n_stages, run_out) in launch order, a pass of K12 where n_stages >= 1 and
+// a K13 for run_out (d_hi unread) where n_stages == 0. launched[0] and
+// launched[1] (host memory) receive the numbers of K12 and K13 launches
+// made. Stops at the first launch that is refused and returns its error.
+extern "C" int fourdgs_merge_levels(void* key, void* val, long long total,
+                                    int block, const long long* steps,
+                                    int n_steps, int* launched,
+                                    void* stream) {
+  int* k = static_cast<int*>(key);
+  int* v = static_cast<int*>(val);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  launched[0] = launched[1] = 0;
+  for (int i = 0; i < n_steps; ++i) {
+    const long long d_hi = steps[3 * i];
+    const int n_stages = static_cast<int>(steps[3 * i + 1]);
+    const long long run_out = steps[3 * i + 2];
+    const cudaError_t err =
+        n_stages == 0 ? finish(k, v, total, block, run_out, st)
+                      : cross_stages(k, v, total, d_hi, n_stages, run_out, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++launched[n_stages == 0 ? 1 : 0];
   }
-  cudaError_t err = allow_smem(merge_finish_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  merge_finish_kernel<<<static_cast<unsigned>(total / block), kBlockThreads,
-                        smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(key), static_cast<int*>(val), total, block,
-      host_log2(run_out), run_out < total ? 1 : 0);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaSuccess);
 }

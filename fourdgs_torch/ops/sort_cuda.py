@@ -6,11 +6,19 @@ array (`merge_sorted_rows`).
 Kernel K2 (`csrc/rowsort.cu`) and kernels K11-K13 (`csrc/merge.cu`), each
 with its plain PyTorch version. A CPU tensor runs the plain versions; a CUDA
 tensor launches the kernels.
+
+No compiler runs where the tests do, so the walks of the two kernels that
+differ most from their plain versions are also written out in plain PyTorch:
+`rowsort_compact_lists` (K2: cut, per-row lists of `cap` live slots, the
+sort on (key, position), overflowing rows through the full sort) and
+`merge_cross_stages_plain` (K12: several stages on the 2^s elements a thread
+holds). The tests hold them against the plain versions exactly.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -28,23 +36,33 @@ TREE_MAX = 1 << 18
 _MIN_ROWS = 8
 # Pairs a block of K11 / K13 keeps in shared memory (128 KB of key + value).
 MERGE_BLOCK = 1 << 14
+# Stages one pass of K12 runs at most: 2^4 keys and values a thread.
+CROSS_GROUP = 4
 
 ROWSORT = CudaKernel(
     "rowsort.cu", "fourdgs_rowsort_compact",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p])
 MERGE_TREE = CudaKernel(
     "merge.cu", "fourdgs_merge_tree",
     [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int])
 MERGE_CROSS_STAGE = CudaKernel(
-    "merge.cu", "fourdgs_merge_cross_stage",
-    [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3)
+    "merge.cu", "fourdgs_merge_cross_stages",
+    [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_int,
+                                                       ctypes.c_longlong])
 MERGE_FINISH = CudaKernel(
     "merge.cu", "fourdgs_merge_finish",
     [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_longlong])
+# One host call that enqueues every launch after K11. It reports the device
+# launches it made, which are counted on MERGE_CROSS_STAGE and MERGE_FINISH.
+MERGE_LEVELS = CudaKernel(
+    "merge.cu", "fourdgs_merge_levels",
+    [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
+                             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
 def rowsort_rows(s: int, row_len: int) -> int:
@@ -52,9 +70,17 @@ def rowsort_rows(s: int, row_len: int) -> int:
     return -(-rows // ROWSORT_COLS) * ROWSORT_COLS
 
 
-def rowsort_compact_plain(key, val, keep_cols: int, row_len: int,
-                          cut: Optional[torch.Tensor], key_shift: int):
-    """Returns ((keep, rows) key, (keep, rows) val, (rows,) live)."""
+def _list_cap(keep_cols: int) -> Optional[int]:
+    """Entries of a row's list in K2 for this keep: a row with more live
+    slots takes the full network. None: the keep is too wide for lists and
+    every row takes it."""
+    return 64 if keep_cols <= 64 else 128 if keep_cols <= 128 else None
+
+
+def _cut_rows(key, val, row_len: int, cut: Optional[torch.Tensor],
+              key_shift: int):
+    """The padded (row_len, rows) views of the slots, the cut applied to the
+    keys (cut slots DEAD)."""
     s = key.shape[0]
     rows = rowsort_rows(s, row_len)
     pad = rows * row_len - s
@@ -69,25 +95,69 @@ def rowsort_compact_plain(key, val, keep_cols: int, row_len: int,
                                       dtype=torch.int32)])
         tid = torch.clamp(k2 >> key_shift, 0, CUT_TABLE - 1)
         k2 = torch.where(k2 > tbl[tid.long()], DEAD, k2)
+    return k2, v2
+
+
+def rowsort_compact_plain(key, val, keep_cols: int, row_len: int,
+                          cut: Optional[torch.Tensor], key_shift: int):
+    """Returns ((keep, rows) key, (keep, rows) val, (rows,) live): a stable
+    sort of every row, equal keys in the order of their slots; a DEAD key
+    carries the value 0."""
+    k2, v2 = _cut_rows(key, val, row_len, cut, key_shift)
     live = (k2 != DEAD).sum(0, dtype=torch.int32)
-    ks, order = torch.sort(k2, dim=0)
-    vs = torch.gather(v2, 0, order)
-    return (ks[:keep_cols].contiguous(), vs[:keep_cols].contiguous(), live)
+    ks, order = torch.sort(k2, dim=0, stable=True)
+    ks = ks[:keep_cols].contiguous()
+    vs = torch.gather(v2, 0, order[:keep_cols])
+    return ks, torch.where(ks == DEAD, 0, vs), live
 
 
-def rowsort_compact(key: torch.Tensor, val: torch.Tensor, keep_cols: int,
-                    row_len: int = 8192, cut: Optional[torch.Tensor] = None,
-                    key_shift: int = 20):
-    """Sort the rows = ceil(S / row_len) (rounded up to a multiple of 256)
-    strided logical rows of the flat (S,) key/value arrays (row r holds
-    key[r::rows]) and keep each row's first keep_cols. Returns ((keep, rows)
-    key, (keep, rows) val, dropped) — the TRANSPOSED layout, logical rows on
-    the minor axis.
+_ENTRY_PAD = 2 ** 63 - 1    # an empty list place: sorts after every entry
 
-    cut: optional (T <= 2048,) int32 per-tile prune cut keys, applied before
-    sorting (key > cut[key >> key_shift] -> DEAD); `dropped` counts the live
-    slots (after the cut) lost to the keep cap.
-    """
+
+def rowsort_compact_lists(key, val, keep_cols: int, row_len: int,
+                          cut: Optional[torch.Tensor], key_shift: int,
+                          cap: int):
+    """K2's walk written out: what `rowsort_compact_plain` returns, computed
+    as the kernel computes it. A slot that survives the cut is appended as
+    the entry (key << 32 | position in the row) to its row's list of `cap`
+    places; a list is sorted as 64-bit entries (the order in which slots
+    were appended then does not matter); a row with more than `cap` live
+    slots is read again whole and sorted by the same entries; the first
+    `keep_cols` entries give the keys, and the values are fetched from the
+    entries' positions."""
+    if cap < keep_cols:
+        raise ValueError(f"cap {cap} is below keep {keep_cols}")
+    k2, v2 = _cut_rows(key, val, row_len, cut, key_shift)
+    rows = k2.shape[1]
+    pos = torch.arange(row_len, device=key.device)[:, None].expand_as(k2)
+    is_live = k2 != DEAD
+    entries = torch.where(is_live, (k2.long() << 32) | pos, _ENTRY_PAD)
+    live = is_live.sum(0, dtype=torch.int32)
+    # Append: the j-th live slot a row meets goes to place j while j < cap.
+    place = torch.cumsum(is_live, dim=0) - 1
+    listed = is_live & (place < cap)
+    lists = torch.full((cap, rows), _ENTRY_PAD, dtype=torch.int64,
+                       device=key.device)
+    col = torch.arange(rows, device=key.device)[None, :].expand_as(k2)
+    lists[place[listed], col[listed]] = entries[listed]
+    lists = torch.sort(lists, dim=0).values
+    # Overflowing rows: the full sort of the row's entries.
+    over = live > cap
+    if bool(over.any()):
+        full = torch.sort(entries[:, over], dim=0).values
+        lists[:keep_cols, over] = full[:keep_cols]
+    kept = lists[:keep_cols]
+    ok = (kept >> 32).to(torch.int32)
+    at = (kept & 0xFFFFFFFF).clamp(max=row_len - 1)
+    ov = torch.where(ok == DEAD, 0, torch.gather(v2, 0, at))
+    return ok.contiguous(), ov.contiguous(), live
+
+
+def _rowsort_compact_live(key: torch.Tensor, val: torch.Tensor,
+                          keep_cols: int, row_len: int,
+                          cut: Optional[torch.Tensor], key_shift: int):
+    """`rowsort_compact` with the rows' live counts: ((keep, rows) key,
+    (keep, rows) val, (rows,) live slots after the cut, dropped)."""
     if row_len & (row_len - 1) or not 1 <= keep_cols <= row_len:
         raise ValueError(f"row_len must be a power of two >= keep_cols "
                          f"(row_len {row_len}, keep {keep_cols})")
@@ -103,6 +173,7 @@ def rowsort_compact(key: torch.Tensor, val: torch.Tensor, keep_cols: int,
     if key.device.type == "cpu":
         ok, ov, live = rowsort_compact_plain(key, val, keep_cols, row_len,
                                              cut, key_shift)
+        dropped = torch.clamp(live - keep_cols, min=0).sum(dtype=torch.int32)
     elif key.device.type == "cuda":
         s = key.shape[0]
         rows = rowsort_rows(s, row_len)
@@ -111,16 +182,35 @@ def rowsort_compact(key: torch.Tensor, val: torch.Tensor, keep_cols: int,
                          device=key.device)
         ov = torch.empty_like(ok)
         live = torch.empty(rows, dtype=torch.int32, device=key.device)
+        # The kernel adds every row's max(live - keep, 0) into it.
+        dropped = torch.zeros((), dtype=torch.int32, device=key.device)
         cut_c = None if cut is None else cut.to(torch.int32).contiguous()
         ROWSORT(key, val, s, rows, row_len, keep_cols,
                 cut_c,
                 0 if cut_c is None else cut_c.shape[0], key_shift,
-                ok, ov, live,
+                ok, ov, live, dropped,
                 stream=torch.cuda.current_stream(key.device).cuda_stream)
     else:
         raise ValueError(f"unsupported device {key.device}")
-    dropped = live.sum(dtype=torch.int32) - (ok != DEAD).sum(
-        dtype=torch.int32)
+    return ok, ov, live, dropped
+
+
+def rowsort_compact(key: torch.Tensor, val: torch.Tensor, keep_cols: int,
+                    row_len: int = 8192, cut: Optional[torch.Tensor] = None,
+                    key_shift: int = 20):
+    """Sort the rows = ceil(S / row_len) (rounded up to a multiple of 256)
+    strided logical rows of the flat (S,) key/value arrays (row r holds
+    key[r::rows]) and keep each row's first keep_cols. Returns ((keep, rows)
+    key, (keep, rows) val, dropped) — the TRANSPOSED layout, logical rows on
+    the minor axis.
+
+    cut: optional (T <= 2048,) int32 per-tile prune cut keys, applied before
+    sorting (key > cut[key >> key_shift] -> DEAD); `dropped` counts the live
+    slots (after the cut) lost to the keep cap. Equal keys of a row keep
+    the order of their slots (a stable sort); a DEAD key carries value 0.
+    """
+    ok, ov, _, dropped = _rowsort_compact_live(key, val, keep_cols, row_len,
+                                               cut, key_shift)
     return ok, ov, dropped
 
 
@@ -187,6 +277,35 @@ def merge_cross_stage_plain(key, val, d: int, run_out: int):
     return out_k.reshape(-1), out_v.reshape(-1)
 
 
+def merge_cross_stages_plain(key, val, d_hi: int, n_stages: int,
+                             run_out: int):
+    """One pass of K12 as its threads run it: the 2^s elements whose indices
+    differ in the s bits log2(d_lo) ... log2(d_hi) form a group (one
+    thread's registers), and the stages d_hi, d_hi / 2 ... d_lo =
+    d_hi >> (s - 1) run on the group axis. Equals n_stages calls of
+    merge_cross_stage_plain."""
+    n = key.shape[0]
+    size = 1 << n_stages
+    d_lo = d_hi >> (n_stages - 1)
+    k = key.reshape(-1, size, d_lo)
+    v = val.reshape(-1, size, d_lo)
+    first = torch.arange(k.shape[0], device=key.device) * (size * d_lo)
+    # 2 * d_hi <= run_out: a group lies in one run and has one direction.
+    desc = (((first // run_out) % 2 == 1) & (run_out < n))[:, None, None, None]
+    h = size // 2
+    while h >= 1:
+        k4, v4 = k.reshape(-1, size // (2 * h), 2, h * d_lo), \
+            v.reshape(-1, size // (2 * h), 2, h * d_lo)
+        lo_k, hi_k = k4[:, :, 0], k4[:, :, 1]
+        swap = torch.where(desc[..., 0], lo_k < hi_k, hi_k < lo_k)
+        k = torch.stack([torch.where(swap, hi_k, lo_k),
+                         torch.where(swap, lo_k, hi_k)], dim=2)
+        v = torch.stack([torch.where(swap, v4[:, :, 1], v4[:, :, 0]),
+                         torch.where(swap, v4[:, :, 0], v4[:, :, 1])], dim=2)
+        h //= 2
+    return k.reshape(-1), v.reshape(-1)
+
+
 def merge_finish_plain(key, val, block: int, run_out: int):
     """K13's plain version: on its bitonic input, the stages block/2 ... 1
     sort every block in the direction of its run of run_out elements."""
@@ -220,21 +339,33 @@ def merge_tree(key, val, c: int, block: int = MERGE_BLOCK,
     return out_k, out_v
 
 
-def merge_cross_stage(key, val, d: int, run_out: int):
-    """K12: one compare-exchange stage at distance d of the level that
-    makes runs of run_out elements. On the card it works in place on
-    contiguous arrays and returns them."""
+def merge_cross_stages(key, val, d_hi: int, n_stages: int, run_out: int):
+    """K12: the n_stages (1 to CROSS_GROUP) compare-exchange stages at
+    distances d_hi, d_hi / 2 ... of the level that makes runs of run_out
+    elements, in one pass. On the card it works in place on contiguous
+    arrays and returns them."""
     dev = _check_kv(key, val)
     n = key.shape[0]
-    if not (_is_pow2(d) and _is_pow2(run_out) and 2 * d <= run_out <= n):
-        raise ValueError(f"need powers of two 2 * d <= run_out <= N, got d "
-                         f"{d}, run_out {run_out}, N {n}")
+    if not (_is_pow2(d_hi) and _is_pow2(run_out) and 2 * d_hi <= run_out <= n
+            and 1 <= n_stages <= CROSS_GROUP and d_hi >> (n_stages - 1)):
+        raise ValueError(f"need powers of two 2 * d <= run_out <= N and 1 to "
+                         f"{CROSS_GROUP} stages down to a distance >= 1, got "
+                         f"d {d_hi}, {n_stages} stages, run_out {run_out}, "
+                         f"N {n}")
     if dev == "cpu":
-        return merge_cross_stage_plain(key, val, d, run_out)
+        return merge_cross_stages_plain(key, val, d_hi, n_stages, run_out)
     if not (key.is_contiguous() and val.is_contiguous()):
-        raise ValueError("the in-place stage needs contiguous arrays")
-    MERGE_CROSS_STAGE(key, val, n, d, run_out, stream=_stream(key))
+        raise ValueError("the in-place stages need contiguous arrays")
+    MERGE_CROSS_STAGE(key, val, n, d_hi, n_stages, run_out,
+                      stream=_stream(key))
     return key, val
+
+
+def merge_cross_stage(key, val, d: int, run_out: int):
+    """K12 with one stage: the compare-exchange at distance d of the level
+    that makes runs of run_out elements. On the card it works in place on
+    contiguous arrays and returns them."""
+    return merge_cross_stages(key, val, d, 1, run_out)
 
 
 def merge_finish(key, val, run_out: int, block: int = MERGE_BLOCK):
@@ -272,20 +403,84 @@ def _pad_rows(k2d, v2d):
     return k2d.reshape(-1), v2d.reshape(-1)
 
 
-def merge_schedule(n: int, block: int):
-    """The launches after K11 for N elements: [("cross", d, run_out) ...,
-    ("finish", run_out)] per level, for runs of block, 2 * block, ... N / 2
-    merged into runs of twice the size."""
+def merge_schedule(n: int, block: int, group: int = 1):
+    """The launches after K11 for N elements, for runs of block, 2 * block,
+    ... N / 2 merged into runs of twice the size: per level its cross
+    stages d = run, run / 2 ... block, then ("finish", run_out).
+
+    group = 1: one ("cross", d, run_out) per stage. group > 1: a level's k
+    cross stages in ceil(k / group) passes of nearly equal size, each
+    ("cross", d_hi, run_out, n_stages) for the stages d_hi, d_hi / 2 ...
+    d_hi >> (n_stages - 1)."""
     steps = []
     run = block
     while run < n:
-        d = run
-        while d >= block:
-            steps.append(("cross", d, 2 * run))
-            d //= 2
+        k = (run // block).bit_length()            # stages run ... block
+        if group == 1:
+            steps += [("cross", run >> i, 2 * run) for i in range(k)]
+        else:
+            passes = -(-k // group)
+            done = 0
+            for p in range(passes):
+                size = k // passes + (p < k % passes)
+                steps.append(("cross", run >> done, 2 * run, size))
+                done += size
         steps.append(("finish", 2 * run))
         run *= 2
     return steps
+
+
+@functools.lru_cache(maxsize=16)
+def _levels_array(steps: tuple):
+    """Steps in merge_schedule's form as the (d_hi, n_stages, run_out)
+    triples `fourdgs_merge_levels` reads (n_stages 0: a finish)."""
+    flat = []
+    for step in steps:
+        flat += [step[1], step[3] if len(step) > 3 else 1, step[2]] \
+            if step[0] == "cross" else [0, 0, step[1]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _enqueue_levels(key, val, block: int, steps):
+    """One host call that enqueues `steps` (merge_schedule's form) on the
+    card, in place; K12 and K13 are counted as the C loop reports its
+    launches. Returns (K12 launches, K13 launches)."""
+    launched = (ctypes.c_int * 2)()
+    try:
+        MERGE_LEVELS(key, val, key.shape[0], block,
+                     _levels_array(tuple(steps)), len(steps), launched,
+                     stream=_stream(key))
+    finally:
+        MERGE_CROSS_STAGE.launches += launched[0]
+        MERGE_FINISH.launches += launched[1]
+    return launched[0], launched[1]
+
+
+def merge_levels(key, val, block: int = MERGE_BLOCK):
+    """Every launch after K11, on sorted runs of `block` elements (odd runs
+    descending): the passes of K12 and the finishes of K13 that
+    merge_schedule(N, block, CROSS_GROUP) lists, in place on the card and
+    enqueued by one host call there."""
+    dev = _check_kv(key, val)
+    n = key.shape[0]
+    if not (_is_pow2(block) and 2 <= block <= n):
+        raise ValueError(f"need a power of two 2 <= block <= N, got block "
+                         f"{block}, N {n}")
+    steps = merge_schedule(n, block, CROSS_GROUP)
+    if dev == "cpu":
+        for step in steps:
+            if step[0] == "cross":
+                key, val = merge_cross_stages_plain(
+                    key, val, step[1], step[3] if len(step) > 3 else 1,
+                    step[2])
+            else:
+                key, val = merge_finish_plain(key, val, block, step[1])
+        return key, val
+    if not (key.is_contiguous() and val.is_contiguous()):
+        raise ValueError("the in-place levels need contiguous arrays")
+    if steps:
+        _enqueue_levels(key, val, block, steps)
+    return key, val
 
 
 def merge_sorted_rows_plain(k2d, v2d, rows_alternating: bool = False):
@@ -309,8 +504,9 @@ def merge_sorted_rows(k2d: torch.Tensor, v2d: torch.Tensor,
     `compact_pairs(alternating=True)` makes); otherwise every row is
     ascending and K11 reads the odd rows back to front.
 
-    K11 once, then for every level above MERGE_BLOCK one K12 per distance
-    >= MERGE_BLOCK and one K13 (merge_schedule)."""
+    K11 once, then for every level above MERGE_BLOCK its distances >=
+    MERGE_BLOCK in passes of K12 of up to CROSS_GROUP stages and one K13
+    (merge_levels; merge_schedule lists the launches)."""
     if k2d.dim() != 2 or k2d.shape != v2d.shape:
         raise ValueError(f"want (R, C) key and value rows, got "
                          f"{tuple(k2d.shape)} and {tuple(v2d.shape)}")
@@ -323,9 +519,4 @@ def merge_sorted_rows(k2d: torch.Tensor, v2d: torch.Tensor,
     key, val = _pad_rows(k2d, v2d)
     block = min(MERGE_BLOCK, key.shape[0])
     key, val = merge_tree(key, val, c, block, rows_alternating)
-    for step in merge_schedule(key.shape[0], block):
-        if step[0] == "cross":
-            key, val = merge_cross_stage(key, val, step[1], step[2])
-        else:
-            key, val = merge_finish(key, val, step[1], block)
-    return key, val
+    return merge_levels(key, val, block)

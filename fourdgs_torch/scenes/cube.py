@@ -40,16 +40,18 @@ def build_cube_scene(n: int, seed: int = 0,
     def normal():
         return torch.randn(n, generator=gen, device=device)
 
-    z = torch.zeros(n, device=device)
+    def zeros():       # one tensor a field: a shared one would sum their grads
+        return torch.zeros(n, device=device)
+
     f_r, f_g = u01(), u01()
     return dict(
         px=uniform(-200.0, 200.0), py=uniform(-200.0, 200.0),
-        pz=uniform(-200.0, 200.0), pt=z,
+        pz=uniform(-200.0, 200.0), pt=zeros(),
         qw=normal(), qx=normal(), qy=normal(), qz=normal(),
         sx=uniform(3.0, 8.0), sy=uniform(3.0, 8.0), sz=uniform(3.0, 8.0),
         lifetime=torch.full((n,), 50.0, device=device),
         fade=torch.full((n,), 0.5, device=device),
-        vx=z, vy=z, vz=z,
+        vx=zeros(), vy=zeros(), vz=zeros(),
         cr=f_r * 0.85 + 0.15, cg=f_g * 0.85 + 0.15,
         cb=(f_r * 0.85 + 0.15) * 0.5 + 0.3, ca=f_g * 0.4 + 0.6,
     )

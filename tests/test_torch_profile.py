@@ -1,6 +1,8 @@
 """The stage profiler of the port (fourdgs_torch/tools/profile_frame.py):
 its attribution of device operations to `fourdgs::*` ranges on a synthetic
-trace, and one profiled render on the CPU (host ranges only)."""
+trace, and one profiled render on the CPU (host ranges only); and the parts
+of the sort split (fourdgs_torch/tools/sort_split.py) that need no card: its
+arguments and its histogram of live keys a row."""
 
 import pytest
 import torch
@@ -137,3 +139,46 @@ def test_profile_path_grad_step_finds_the_backward_stages():
     assert want <= set(res["stages"])
     assert all(res["stages"][k]["host_ms"] > 0 for k in want)
     assert params["px"].grad is None         # the caller's params untouched
+
+
+def test_sort_split_arguments_and_histogram(monkeypatch):
+    """The sort split's argument parsing, and its histogram of live keys a
+    row on what a 4,096-splat converged frame hands rowsort_compact (the
+    timing part needs the card and is not run here)."""
+    from fourdgs_torch.core.camera import Camera
+    from fourdgs_torch.ops import sort_cuda as S
+    from fourdgs_torch.render.autoconfig import auto_render_config
+    from fourdgs_torch.scenes.cube import (CUBE_CAMERA, build_cube_scene,
+                                           converged_cube_scene)
+    from fourdgs_torch.tools import sort_split as SS
+    opts = SS.parse_args([])
+    assert (opts.width, opts.height, opts.splats, opts.json) == (
+        SS.WIDTH, SS.HEIGHT, SS.N_SPLATS, None)
+    opts = SS.parse_args(["--width", "3840", "--height", "2160", "--json",
+                          "out.json"])
+    assert (opts.width, opts.height, opts.json) == (3840, 2160, "out.json")
+    with pytest.raises(SystemExit):
+        SS.parse_args(["--frames", "3"])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    n, w, h = 4096, 256, 128
+    params = converged_cube_scene(build_cube_scene(n, seed=3, device="cpu"))
+    cam = Camera.create(**CUBE_CAMERA, width=w, height=h, device="cpu")
+    calls = SS.capture_rowsort_calls(params, cam, auto_render_config(n, w, h))
+    assert len(calls) == 1
+    (key, val, keep), kw = calls[0]
+    hist = SS.live_histogram(key, kw["row_len"], kw["cut"], kw["key_shift"])
+    rows = S.rowsort_rows(key.shape[0], kw["row_len"])
+    before, after = hist["before_cut"], hist["after_cut"]
+    assert before["rows"] == after["rows"] == rows
+    assert before["total"] == int((key != S.DEAD).sum()) > 0
+    _, _, live = S.rowsort_compact_plain(key, val, keep, kw["row_len"],
+                                         kw["cut"], kw["key_shift"])
+    assert after["total"] == int(live.sum()) <= before["total"]
+    assert after["max"] == int(live.max())
+    assert after["mean"] == pytest.approx(float(live.double().mean()))
+    assert after["p50"] <= after["p99"] <= after["p999"] <= after["max"]
+    for t in SS.THRESHOLDS:
+        assert after[f"share_above_{t}"] == pytest.approx(
+            float((live > t).double().mean()))
+    same = SS.live_histogram(key, kw["row_len"], None, kw["key_shift"])
+    assert same["after_cut"] == same["before_cut"] == before
