@@ -15,7 +15,13 @@ on the same card at each of those call sites. Phases:
   (a) the card, its power limit, the kernel builds;
   non-converged path (exact head, progressive deepening):
   (b) K3 sample_blocks, (c) K2 rowsort_compact, (d) K1 composite (pass 1
-      and one deepening pass), each with the kernel and plain times. K2 is
+      and each of the five deepening passes, each launched twice and
+      required bit-equal), each with the kernel and plain times; K1 and K8
+      also on synthetic records made from a seed (an empty tile, count = M,
+      the early exit mid-tile, il = 0 and v0 = 0, a tile-covering record,
+      cull boxes on a warp patch's edge, ragged counts) at every P template
+      instance, in both call forms, against plain and bit-equal across two
+      launches. K2 is
       held against its plain version exactly (kept keys, values, live
       counts, dropped) here and at every later site, with the share of rows
       that outgrew their list and took the full network, and launched twice
@@ -51,9 +57,11 @@ on the same card at each of those call sites. Phases:
   training (the gradient of a loss of the frame with respect to the packed
   params, at t = 0.37 so that every field's gradient is nonzero):
   (j) the backward kernels against their plain versions at the inputs one
-      10M converged grad step gives them (K8 once, K9 for the main and the
-      big-tier stream), and K8's deepening-pass form (`sel`) at a 20K
-      non-converged grad step;
+      10M grad step gives them: non-converged (K8 at pass 1 and the five
+      deepening passes, the `sel` form; K1 and K8 launched six times a step)
+      and converged (K8 once, K9 for the main and the big-tier stream), K8
+      launched twice at each site and required bit-equal; and K8's `sel`
+      form at a 20K non-converged grad step;
   (k) the 20K-splat frames, both modes, card gradients against CPU
       gradients: from one binning (1e-4 of each field's max |g|) and from
       params (the tie-order tolerance of tests/test_torch_train.py); then
@@ -509,72 +517,210 @@ def _carry_err(got, want):
     return d03, rel, same_sel and zero_rows, float((got - want).abs().max())
 
 
-def phase_composite(tag, calls_first, calls_at=None):
-    """K1 at pass 1 (one call per frame) and, given `calls_at`, at the first
-    deepening pass (composite_records_at)."""
+def _k1_site(label, err, t_ms, t_plain, recs, cnt, pix, tiles,
+             extra_bytes=0):
+    """A call site of K1: the records the counts name, the pixel
+    coordinates, and the carry in and out of the `tiles` tiles
+    composited."""
+    n_rec = int(cnt.sum())
+    moved = (n_rec * recs.shape[1] * 4 + nbytes(cnt)
+             + tiles * pix * 4 * (2 + 8 + 8) + extra_bytes)
+    return site(label, err, t_ms, t_plain, moved, n_rec * pix * PAIR_TEST_OPS)
+
+
+def phase_composite(tag, calls_first, calls_at=()):
+    """K1 at pass 1 (one call per frame) and at every deepening pass
+    (composite_records_at, `calls_at`), each against its plain version and
+    launched twice for bit equality."""
     import torch
     from fourdgs_torch.ops import composite_cuda as C
     check(len(calls_first) == 1, f"{tag} K1 pass 1: {len(calls_first)} "
           f"calls in one frame")
     (rec, counts, kx, ky, carry), _ = calls_first[0]
     got = C.composite_records(rec, counts, kx, ky, carry)
+    again = C.composite_records(rec, counts, kx, ky, carry)
     want = C.composite_plain(rec, counts, kx, ky, carry)
     torch.cuda.synchronize()
     d03, rel, sel_ok, e1 = _carry_err(got, want)
     check(d03 <= 1e-5 and rel <= 1e-5 and sel_ok,
           f"{tag} K1 pass 1: rows 0-3 max |d| {d03:.3e}, T rel {rel:.3e}, "
           f"selection equal {sel_ok}")
+    check(torch.equal(got, again), f"{tag} K1 pass 1: a second launch "
+          f"differs from the first")
     ms = cuda_ms(lambda: C.composite_records(rec, counts, kx, ky, carry),
                  reps=20)
     plain_ms = cuda_ms(lambda: C.composite_plain(rec, counts, kx, ky, carry),
                        reps=3, warmup=1)
-    line = (f"{tag} K1 composite: pass 1 T={rec.shape[0]}, M={rec.shape[2]}, "
-            f"P={kx.shape[2]}, {int(counts.sum()):,} records, identity "
-            f"carry: rows 0-3 max |d| {d03:.3e}, T max rel {rel:.3e}, "
-            f"selection equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    def k1_site(label, err, t_ms, t_plain, recs, cnt, tiles, extra_bytes=0):
-        # The records the counts name, the pixel coordinates, and the carry
-        # in and out of the `tiles` tiles composited.
-        n_rec, pix = int(cnt.sum()), kx.shape[2]
-        moved = (n_rec * recs.shape[1] * 4 + nbytes(cnt)
-                 + tiles * pix * 4 * (2 + 8 + 8) + extra_bytes)
-        return site(label, err, t_ms, t_plain, moved,
-                    n_rec * pix * PAIR_TEST_OPS)
-    sites = [k1_site(f"pass 1, T={rec.shape[0]}, M={rec.shape[2]}", e1, ms,
-                     plain_ms, rec, counts, rec.shape[0])]
-    if calls_at is None:
-        print(line)
-        return _sites(sites)
-    (rec_s, cnt_s, sel, kx_f, ky_f, carry_f), _ = calls_at[0]
-    got_at = C.composite_records_at(rec_s, cnt_s, sel, kx_f, ky_f,
-                                    carry_f.clone())
-    want_at = carry_f.clone()
-    want_at[sel] = C.composite_plain(rec_s, cnt_s, kx_f[sel], ky_f[sel],
-                                     carry_f[sel])
-    torch.cuda.synchronize()
-    d03s, rels, sel_ok_s, e2 = _carry_err(got_at, want_at)
-    check(d03s <= 1e-5 and rels <= 1e-5 and sel_ok_s,
-          f"{tag} K1 sel pass: rows 0-3 max |d| {d03s:.3e}, T rel "
-          f"{rels:.3e}, selection equal {sel_ok_s}")
+    lines = [f"pass 1 T={rec.shape[0]}, M={rec.shape[2]}, P={kx.shape[2]}, "
+             f"{int(counts.sum()):,} records, identity carry: rows 0-3 max "
+             f"|d| {d03:.3e}, T max rel {rel:.3e}, selection equal; kernel "
+             f"{ms:.3f} ms, plain {plain_ms:.3f} ms"]
+    sites = [_k1_site(f"pass 1, T={rec.shape[0]}, M={rec.shape[2]}", e1, ms,
+                      plain_ms, rec, counts, kx.shape[2], rec.shape[0])]
+    for i, ((rec_s, cnt_s, sel, kx_f, ky_f, carry_f), _) in enumerate(
+            calls_at, 1):
+        got_at = C.composite_records_at(rec_s, cnt_s, sel, kx_f, ky_f,
+                                        carry_f.clone())
+        again = C.composite_records_at(rec_s, cnt_s, sel, kx_f, ky_f,
+                                       carry_f.clone())
+        want_at = carry_f.clone()
+        want_at[sel] = C.composite_plain(rec_s, cnt_s, kx_f[sel], ky_f[sel],
+                                         carry_f[sel])
+        torch.cuda.synchronize()
+        d03s, rels, sel_ok_s, e2 = _carry_err(got_at, want_at)
+        check(d03s <= 1e-5 and rels <= 1e-5 and sel_ok_s,
+              f"{tag} K1 deepening pass {i}: rows 0-3 max |d| {d03s:.3e}, T "
+              f"rel {rels:.3e}, selection equal {sel_ok_s}")
+        check(torch.equal(got_at, again), f"{tag} K1 deepening pass {i}: a "
+              f"second launch differs from the first")
 
-    def plain_at():
-        out = carry_f.clone()
-        out[sel] = C.composite_plain(rec_s, cnt_s, kx_f[sel], ky_f[sel],
-                                     carry_f[sel])
-    # Both sel-pass timings include one (T, 8, P) carry copy.
-    at_ms = cuda_ms(lambda: C.composite_records_at(
-        rec_s, cnt_s, sel, kx_f, ky_f, carry_f.clone()), reps=20)
-    at_plain_ms = cuda_ms(plain_at, reps=3, warmup=1)
-    print(f"{line}; sel pass of {sel.shape[0]} tiles "
-          f"({int((cnt_s > 0).sum())} active): rows 0-3 max |d| "
-          f"{d03s:.3e}, T max rel {rels:.3e}, deepening selection equal; "
-          f"kernel {at_ms:.3f} ms, plain {at_plain_ms:.3f} ms (each with a "
-          f"carry copy)")
-    # The timed call also copies the (T, 8, P) carry once.
-    sites.append(k1_site(f"deepening pass, {sel.shape[0]} tiles", e2, at_ms,
-                         at_plain_ms, rec_s, cnt_s, sel.shape[0],
-                         nbytes(sel) + 2 * nbytes(carry_f)))
+        def plain_at():
+            out = carry_f.clone()
+            out[sel] = C.composite_plain(rec_s, cnt_s, kx_f[sel], ky_f[sel],
+                                         carry_f[sel])
+        # Both timings include one (T, 8, P) carry copy.
+        at_ms = cuda_ms(lambda: C.composite_records_at(
+            rec_s, cnt_s, sel, kx_f, ky_f, carry_f.clone()), reps=20)
+        at_plain_ms = cuda_ms(plain_at, reps=3, warmup=1)
+        lines.append(f"deepening pass {i} of {sel.shape[0]} tiles "
+                     f"({int((cnt_s > 0).sum())} active, "
+                     f"{int(cnt_s.sum()):,} records): rows 0-3 max |d| "
+                     f"{d03s:.3e}, T max rel {rels:.3e}, deepening selection "
+                     f"equal; kernel {at_ms:.3f} ms, plain {at_plain_ms:.3f} "
+                     f"ms (each with a carry copy)")
+        sites.append(_k1_site(
+            f"deepening pass {i}, {sel.shape[0]} tiles", e2, at_ms,
+            at_plain_ms, rec_s, cnt_s, kx_f.shape[2], sel.shape[0],
+            nbytes(sel) + 2 * nbytes(carry_f)))
+    print(f"{tag} K1 composite (tolerance 1e-5 on rows 0-3 and T relative; "
+          f"two launches bit-equal at every site): " + "; ".join(lines))
     return _sites(sites)
+
+
+def _branch_records(rng, kx, ky, m):
+    """(T, 16, m) records and counts (T,) made with numpy from `rng` for
+    the tiles kx, ky (T, 1, P) (T = 8), one case a tile: 0 records; m
+    records of small footprints (count = M); an opaque tile-covering first
+    chunk (the tile-wide early exit mid-tile); il = 0 and v0 = 0 records
+    (unbounded boxes) among small ones; one record covering the whole tile;
+    axis-aligned records whose box edge meets a warp patch's edge; a ragged
+    count; a count of 1. a_eff is 0 past the count, as the pack makes it."""
+    import numpy as np
+    import torch
+    t_tiles, _, p = kx.shape
+    x, y = kx[:, 0].cpu().numpy(), ky[:, 0].cpu().numpy()
+    step = float(np.diff(np.unique(x[0]))[0])          # pixel spacing
+    f = np.zeros((t_tiles, 16, m), np.float32)
+    f[:, 0] = rng.uniform(x.min(1, keepdims=True) - 4 * step,
+                          x.max(1, keepdims=True) + 4 * step, (t_tiles, m))
+    f[:, 1] = rng.uniform(y.min(1, keepdims=True) - 4 * step,
+                          y.max(1, keepdims=True) + 4 * step, (t_tiles, m))
+    ang = rng.uniform(0, 2 * np.pi, (t_tiles, m))
+    f[:, 2], f[:, 3] = np.cos(ang), np.sin(ang)
+    f[:, 4:6] = 1.0 / (step * rng.uniform(0.5, 6.0, (t_tiles, 2, m)))
+    f[:, 6:9] = rng.uniform(0.0, 1.0, (t_tiles, 3, m))
+    f[:, 9] = rng.uniform(0.3, 0.9, (t_tiles, m))
+    counts = np.array([0, m, m, m * 2 // 3, 160, 140, rng.integers(1, m),
+                       1], np.int32)
+    # Tile 2: an opaque first chunk over the whole tile.
+    f[2, 0:2, :128] = np.array([x[2].mean(), y[2].mean()])[:, None]
+    f[2, 4:6, :128] = 0.25 / (x[2].max() - x[2].min())
+    f[2, 9, :128] = 0.99
+    # Tile 3: il = 0 on one axis or both, and v0 = 0, among small ones.
+    f[3, 4, 0:40:2] = 0.0
+    f[3, 5, 1:40:2] = 0.0
+    f[3, 2:4, 40:60] = 0.0
+    f[3, 9, 0:60] = 0.05
+    # Tile 4: one record covering the whole tile, early in the list.
+    f[4, 0:2, 3] = np.array([x[4].mean(), y[4].mean()])
+    f[4, 4:6, 3] = 0.2 / (x[4].max() - x[4].min())
+    f[4, 9, 3] = 0.5
+    # Tile 5: axis-aligned footprints whose left edge lands on the right
+    # edge of a warp's patch (32 columns), on a pixel row of that patch.
+    cols = np.sort(np.unique(x[5]))
+    edge = cols[31::32][:-1] if cols.size > 32 else cols[-1:]
+    for i in range(100):
+        l0 = step * (1 + i % 4)
+        f[5, 2, i], f[5, 3, i] = 1.0, 0.0
+        f[5, 4, i] = 1.0 / l0
+        f[5, 0, i] = edge[i % edge.size] + np.float32(0.5) * np.float32(l0)
+        f[5, 1, i] = y[5][rng.integers(0, p)]
+    f[:, 9] *= np.arange(m)[None] < counts[:, None]
+    return (torch.from_numpy(f).to(kx.device),
+            torch.from_numpy(counts).to(kx.device))
+
+
+def phase_composite_branches(dev):
+    """(d) K1 and K8 against their plain versions on records made with numpy
+    from a seed, one case a tile (`_branch_records`), at every P template
+    instance (P = 256, 512, 1024, 2048, 4096 on tiles of 16x16, 8x64, 16x64,
+    16x128, 32x128 pixels), in both call forms (`sel` None and a deepening
+    pass over a permutation of the tiles); each launched twice, bit-equal."""
+    import numpy as np
+    import torch
+    from fourdgs_torch.ops import composite_cuda as C
+    from fourdgs_torch.render import tiles as TT
+    rng = np.random.default_rng(7)
+    lines = []
+    for tile_h, tile_w in ((16, 16), (8, 64), (16, 64), (16, 128),
+                           (32, 128)):
+        p, m = tile_h * tile_w, 384
+        px, py, _ = TT.tile_pixel_ndc(4 * tile_w, 2 * tile_h, tile_h, tile_w,
+                                      device=dev)
+        kx = (px / 1.4)[:, None].contiguous()
+        ky = (py / 2.3)[:, None].contiguous()
+        rec, counts = _branch_records(rng, kx, ky, m)
+        carry = C.identity_carry(8, p, device=dev)
+        tag = f"(d) K1 / K8 synthetic records, P={p} ({tile_h}x{tile_w})"
+        got = C.composite_records(rec, counts, kx, ky, carry)
+        again = C.composite_records(rec, counts, kx, ky, carry)
+        want = C.composite_plain(rec, counts, kx, ky, carry)
+        sel = torch.tensor([5, 2, 7, 0, 3, 6, 1, 4], dtype=torch.int32,
+                           device=dev)
+        base = want.clone()
+        got_at = C.composite_records_at(rec, counts, sel, kx, ky,
+                                        base.clone())
+        want_at = base.clone()
+        want_at[sel.long()] = C.composite_plain(
+            rec, counts, kx[sel.long()], ky[sel.long()], base[sel.long()])
+        g = torch.randn(carry.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(p))
+        d8 = C.composite_records_bwd(rec, counts, None, kx, ky, carry, want, g)
+        d8b = C.composite_records_bwd(rec, counts, None, kx, ky, carry, want,
+                                      g)
+        d8_want = C.composite_bwd_plain(rec, counts, kx, ky, carry, want, g)
+        s8 = C.composite_records_bwd(rec, counts, sel, kx, ky,
+                                     base[sel.long()], want_at[sel.long()], g)
+        s8_want = C.composite_bwd_plain(
+            rec, counts, kx[sel.long()], ky[sel.long()], base[sel.long()],
+            want_at[sel.long()], g[sel.long()])
+        torch.cuda.synchronize()
+        for label, a, b in (("K1", got, want), ("K1 sel", got_at, want_at)):
+            d03, rel, sel_ok, _ = _carry_err(a, b)
+            check(d03 <= 1e-5 and rel <= 1e-5 and sel_ok,
+                  f"{tag} {label}: rows 0-3 max |d| {d03:.3e}, T rel "
+                  f"{rel:.3e}, selection equal {sel_ok}")
+        check(torch.equal(got, again), f"{tag} K1: two launches differ")
+        check(float(want[0, 4].min()) == 1.0
+              and float(want[2, 4].max()) <= 1e-6
+              and float(want[1, 3].max()) > 0.1,
+              f"{tag}: the cases did not come out as built (empty tile "
+              f"transmittance, early exit, coverage)")
+        for label, a, b in (("K8", d8, d8_want), ("K8 sel", s8, s8_want)):
+            rel, _ = _field_err(a[:, :C.N_FIELDS], b[:, :C.N_FIELDS], 1)
+            check(rel <= BWD_TOL and bool((a[:, C.N_FIELDS:] == 0).all()),
+                  f"{tag} {label}: {rel:.3e} of a field's max |d| > "
+                  f"{BWD_TOL:g}")
+        check(torch.equal(d8, d8b), f"{tag} K8: two launches differ")
+        lines.append(f"P={p}: K1 rows 0-3 max |d| "
+                     f"{float((got - want)[:, :4].abs().max()):.2e}, K8 "
+                     f"{_field_err(d8[:, :10], d8_want[:, :10], 1)[0]:.2e} of "
+                     f"a field's max")
+    print("(d) K1 and K8 on synthetic records (empty tile, count = M, early "
+          "exit mid-tile, il = 0 and v0 = 0, a tile-covering record, boxes on "
+          "a warp patch's edge, ragged counts), both call forms, every P "
+          "instance, against plain and bit-equal across two launches: "
+          + "; ".join(lines))
 
 
 def _pair_multiset(binning):
@@ -1024,6 +1170,8 @@ def phase_backward_kernels(tag, calls_c, calls_t):
 
     results, lines = {}, []
     sites = []
+    # The backward meets the deepening passes last first.
+    n_sel = sum(c[0][2] is not None for c in calls_c)
     for (records, counts, sel, kx, ky, carry, fout, g), _ in calls_c:
         def k8():
             return C.composite_records_bwd(records, counts, sel, kx, ky,
@@ -1036,16 +1184,19 @@ def phase_backward_kernels(tag, calls_c, calls_t):
             s = sel.long()
             return C.composite_bwd_plain(records, counts, kx[s], ky[s],
                                          carry, fout, g[s])
-        got, want = k8(), plain()
+        got, again, want = k8(), k8(), plain()
         torch.cuda.synchronize()
+        name = f"deepening pass {n_sel}" if sel is not None else "pass 1"
+        n_sel -= sel is not None
         rel, err = _field_err(got[:, :C.N_FIELDS], want[:, :C.N_FIELDS], 1)
         check(rel <= BWD_TOL and bool((got[:, C.N_FIELDS:] == 0).all()),
-              f"{tag} K8 ({'sel' if sel is not None else 'pass 1'}): "
-              f"{rel:.3e} of a field's max |d| > {BWD_TOL:g}")
+              f"{tag} K8 ({name}): {rel:.3e} of a field's max |d| > "
+              f"{BWD_TOL:g}")
+        check(torch.equal(got, again), f"{tag} K8 ({name}): a second launch "
+              f"differs from the first")
         ms = cuda_ms(k8, reps=10)
         plain_ms = cuda_ms(plain, reps=2, warmup=1)
-        where = (f"{'deepening pass' if sel is not None else 'pass 1'}, "
-                 f"T={records.shape[0]}, M={records.shape[2]}, "
+        where = (f"{name}, T={records.shape[0]}, M={records.shape[2]}, "
                  f"P={kx.shape[2]}, {int(counts.sum()):,} records")
         # The named records read and their cotangents written, the pixel
         # coordinates, and the carry, output and cotangent of each tile.
@@ -1059,7 +1210,8 @@ def phase_backward_kernels(tag, calls_c, calls_t):
                      f"plain {plain_ms:.3f} ms")
     results["K8 composite_bwd"] = _sites(sites)
     print(f"{tag} K8 composite_bwd (tolerance {BWD_TOL:g} of each field's "
-          f"max |d|): " + "; ".join(lines))
+          f"max |d|; two launches bit-equal at every site): "
+          + "; ".join(lines))
     if not calls_t:
         return results
     sites, lines = [], []
@@ -1761,6 +1913,8 @@ def main() -> int:
     print(f"    scene + capture frame {time.time() - t0:.1f} s")
 
     # (b)-(d) each kernel against its plain version at the path's inputs.
+    check(len(captured["pipeline.composite_records_at"])
+          == cfg.deepening_passes - 1, "(d) K1: not one call a deepening pass")
     results = {"non-converged": {
         "K3 sample_blocks": phase_sample_blocks(
             "(b)", captured["tiles.sample_blocks"], 1),
@@ -1771,6 +1925,7 @@ def main() -> int:
             captured["pipeline.composite_records_at"]),
     }}
     phase_rowsort_branches(dev)
+    phase_composite_branches(dev)
     del captured
     # (e) card against CPU on a small frame.
     phase_small_frame(dev, converged=False)
@@ -1780,6 +1935,28 @@ def main() -> int:
         "(f)", params, camera, cfg, kernels,
         dict(never, **{"K1 composite": None, "K2 rowsort_compact": 1,
                        "K3 sample_blocks": 1}), TIMED_FRAMES)[0]}
+
+    # (j) K8 at the inputs of one 10M non-converged grad step: pass 1 and
+    # the five deepening passes (`sel`). Its launches are counted here.
+    t0 = time.time()
+    for k in kernels.values():
+        k.launches = 0
+    captured = capture_kernel_inputs(
+        params, camera, cfg, [(composite_cuda, "composite_records_bwd")],
+        t=T_GRAD, grad=True)
+    torch.cuda.synchronize()
+    step_nc = "non-converged grad step"
+    launches[step_nc] = {name: k.launches for name, k in kernels.items()}
+    for name in ("K1 composite", "K8 composite_bwd"):
+        check(launches[step_nc][name] == cfg.deepening_passes,
+              f"(j) {name}: {launches[step_nc][name]} launches per "
+              f"non-converged grad step, want {cfg.deepening_passes}")
+    print(f"    non-converged grad step capture {time.time() - t0:.1f} s")
+    results[step_nc] = phase_backward_kernels(
+        "(j) non-converged", captured["composite_cuda.composite_records_bwd"],
+        [])
+    del captured
+    torch.cuda.empty_cache()
 
     # Converged path.
     cfg = auto_render_config(N_FULL, W_FULL, H_FULL)

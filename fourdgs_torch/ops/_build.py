@@ -8,7 +8,8 @@ Each `.cu` file exposes plain C entry points (no PyTorch headers), so one
 
 The library is built at first use into `ops/_build/` (listed in
 `.gitignore`), named by a hash of its source, the headers (`*.cuh`) beside it
-and the flags so an edited source is never served a stale library, and loaded
+and in `csrc/`, and the flags so an edited source is never served a stale
+library, and loaded
 with `ctypes`. Pointers and the
 stream travel as `c_void_p`; every entry returns `cudaGetLastError()` after
 its launch and the launcher raises when it is not 0. The launcher takes
@@ -57,8 +58,8 @@ def load_library(source: str, extra_flags=()) -> ctypes.CDLL:
         return _LIBS[key]
     src = CSRC / source
     flags = NVCC_FLAGS + tuple(extra_flags)
-    headers = b"".join(h.read_bytes()
-                       for h in sorted(src.parent.glob("*.cuh")))
+    headers = b"".join(h.read_bytes() for h in sorted(
+        set(src.parent.glob("*.cuh")) | set(CSRC.glob("*.cuh"))))
     digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(flags).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -6,7 +6,12 @@ pack kernel K4), `pack_records` without pack8, `identity_carry`,
 Kernels K1 (`csrc/composite.cu`, the forward) and K8
 (`csrc/composite_bwd.cu`, the backward), each with its plain PyTorch
 version. A CPU tensor runs the plain versions; a CUDA tensor launches the
-kernels. `composite_records` and `composite_records_at` are autograd
+kernels. Both walk a tile's records the same way (`csrc/composite_walk.cuh`:
+records outside, pixels inside, a warp skipping each record whose cull box
+misses its pixels); `composite_cull_boxes`, `walk_tile_width`,
+`walk_pixel_map` and `composite_walk_keep` model that walk in plain PyTorch,
+and the plain versions take its mask (`keep=`) to show that it changes no
+bit. `composite_records` and `composite_records_at` are autograd
 Functions: they differentiate the records and the carry, as the reference's
 `jax.custom_vjp`s do.
 
@@ -35,6 +40,11 @@ _C_IL0, _C_IL1 = 4, 5
 _C_R, _C_G, _C_B, _C_AEFF = 6, 7, 8, 9
 
 ALPHA_MAX = 1.0 - 1e-6
+# Margins of the cull box (csrc/composite_walk.cuh `kBoxRel`, `kBoxAbs`).
+BOX_REL, BOX_ABS = 1e-3, 1e-6
+# Pixels a thread at most, K1 and K8 (their `Shape`s in csrc/composite.cu
+# and csrc/composite_bwd.cu).
+K1_PPT, K8_PPT = 4, 8
 # Tiles per batch of the plain backward: bounds its (tiles, 128, P)
 # temporaries on the card at the 10M-splat frame.
 PLAIN_BATCH_TILES = 64
@@ -44,10 +54,10 @@ PLAIN_BATCH_TILES = 64
 _FLAGS = ("-fmad=false",)
 COMPOSITE = CudaKernel(
     "composite.cu", "fourdgs_composite",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4, extra_flags=_FLAGS)
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4, extra_flags=_FLAGS)
 COMPOSITE_BWD = CudaKernel(
     "composite_bwd.cu", "fourdgs_composite_bwd",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4, extra_flags=_FLAGS)
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4, extra_flags=_FLAGS)
 
 
 def record_fields(proj, p00, p11, pad_to: int | None = None) -> torch.Tensor:
@@ -96,10 +106,117 @@ def identity_carry(t_tiles: int, p: int, device="cpu",
     return c
 
 
-def _chunk_alpha(rec, kx, ky):
+def walk_shape(p: int, max_ppt: int) -> tuple[int, int]:
+    """(threads, pixels a thread) of a block of K1 (max_ppt = K1_PPT) or K8
+    (K8_PPT) at p pixels a tile, as `Shape` of csrc/composite_walk.cuh."""
+    threads = max(256, p // max_ppt)
+    return threads, p // threads
+
+
+def composite_cull_boxes(records: torch.Tensor) -> torch.Tensor:
+    """(T, 4, M) cull boxes (x_lo, x_hi, y_lo, y_hi) of records (T, F, M),
+    in k units, as `record_box` of csrc/composite_walk.cuh computes them
+    (same operations, same order): the axis-aligned box of the region
+    |n0| <= 0.5, |n1| <= 0.5, widened by BOX_REL of its half-widths' sum and
+    BOX_ABS per unit of the centre's magnitude; infinite (no cull) where il0
+    or il1 is 0, |v0|^2 is 0 or not a normal float, or a field is NaN."""
+    sx, sy, v0x, v0y, il0, il1 = records[:, :6].unbind(1)
+    fin = torch.finfo(records.dtype)
+    a0, a1 = il0.abs(), il1.abs()
+    s = v0x * v0x + v0y * v0y
+    bounded = (a0 > 0) & (a1 > 0) & (s >= fin.tiny) & (s <= fin.max)
+    ax, ay = v0x.abs(), v0y.abs()
+    h0, h1 = 0.5 / a0, 0.5 / a1
+    hx = (ax * h0 + ay * h1) / s
+    hy = (ay * h0 + ax * h1) / s
+    rel = BOX_REL * (hx + hy)
+    mx = hx + rel + BOX_ABS * (1.0 + sx.abs())
+    my = hy + rel + BOX_ABS * (1.0 + sy.abs())
+    box = torch.stack([sx - mx, sx + mx, sy - my, sy + my], dim=1)
+    unbounded = torch.tensor([-1.0, 1.0, -1.0, 1.0], dtype=records.dtype,
+                             device=records.device)[None, :, None] * torch.inf
+    return torch.where(bounded[:, None], box, unbounded)
+
+
+def walk_tile_width(ky: torch.Tensor, threads: int) -> torch.Tensor:
+    """(T,) row width each block of `threads` finds from ky (T, 1, P), as
+    `walk_tile_width` of csrc/composite_walk.cuh: the first pixel among 1 ..
+    threads whose ky differs from pixel 0's, kept if it is 32 x a divisor of
+    the warps (the compact map), else 0 (the strided map)."""
+    p = ky.shape[-1]
+    row = ky[:, 0, 1:min(threads + 1, p)] != ky[:, 0, :1]
+    first = torch.where(row.any(dim=1), row.to(torch.int8).argmax(dim=1) + 1,
+                        p)
+    strips = first // 32
+    ok = ((first % 32 == 0) & (strips >= 1)
+          & ((threads // 32) % strips.clamp(min=1) == 0) & (p % first == 0))
+    return torch.where(ok, first, 0)
+
+
+def walk_pixel_map(p: int, tw: int, max_ppt: int) -> torch.Tensor:
+    """(warps, 32 x PPT) pixels each warp owns in a tile of p pixels and row
+    width tw (0: the strided map), for the kernel of `max_ppt`, as
+    `walk_pixel` of csrc/composite_walk.cuh: compact, warp w owns columns
+    32 (w % strips) .. + 31 of rows (w / strips) PPT .. + PPT - 1; strided,
+    thread t owns pixels t + threads j."""
+    threads, ppt = walk_shape(p, max_ppt)
+    t = torch.arange(threads)[:, None]
+    j = torch.arange(ppt)[None, :]
+    if tw > 0:
+        strips, w = tw // 32, t // 32
+        pix = ((w // strips) * ppt + j) * tw + (w % strips) * 32 + t % 32
+    else:
+        pix = t + j * threads
+    return pix.reshape(threads // 32, 32 * ppt)
+
+
+def walk_warp_hits(boxes, kx, ky, pix) -> torch.Tensor:
+    """(T, M, W) whether each record's box (boxes (T, 4, M)) meets the box
+    of the pixels warp w owns, pix (W, L) the pixels of each warp (a
+    `walk_pixel_map`). A NaN edge meets every patch."""
+    pix = pix.to(kx.device)
+    x, y = kx[:, 0][:, pix], ky[:, 0][:, pix]                 # (T, W, L)
+    x_lo, x_hi = x.amin(-1)[:, None], x.amax(-1)[:, None]      # (T, 1, W)
+    y_lo, y_hi = y.amin(-1)[:, None], y.amax(-1)[:, None]
+    b = boxes[..., None]                                       # (T, 4, M, 1)
+    miss = ((b[:, 0] > x_hi) | (b[:, 1] < x_lo) | (b[:, 2] > y_hi)
+            | (b[:, 3] < y_lo))
+    return ~miss
+
+
+def composite_walk_keep(records, kx, ky, max_ppt: int,
+                        counts=None) -> torch.Tensor:
+    """(T, M, P) the (record, pixel) pairs the walk of K1 (max_ppt = K1_PPT,
+    with `counts`) or K8 (K8_PPT, without) visits: the record's box meets
+    the box of the pixels of the warp that owns the pixel; with `counts`,
+    also the record comes before counts[t] (K8 visits the padding too).
+    Every pair outside is one the coverage test rejects (or, past the count,
+    one whose a_eff is 0), so the plain versions given this mask (`keep=`)
+    return the same bits."""
+    t, _, m = records.shape
+    p = kx.shape[-1]
+    boxes = composite_cull_boxes(records)
+    tw = walk_tile_width(ky, walk_shape(p, max_ppt)[0])
+    keep = torch.zeros((t, m, p), dtype=torch.bool, device=records.device)
+    for width in torch.unique(tw).tolist():
+        idx = (tw == width).nonzero().squeeze(1)
+        pix = walk_pixel_map(p, width, max_ppt)
+        warp_of = torch.arange(pix.shape[0]).repeat_interleave(pix.shape[1])
+        owner = torch.empty(p, dtype=torch.long)
+        owner[pix.reshape(-1)] = warp_of
+        hits = walk_warp_hits(boxes[idx], kx[idx], ky[idx], pix)
+        keep[idx] = hits[:, :, owner.to(records.device)]
+    if counts is not None:
+        keep &= (torch.arange(m, device=records.device)[None, :, None]
+                 < counts.to(records.device)[:, None, None])
+    return keep
+
+
+def _chunk_alpha(rec, kx, ky, keep=None):
     """Coverage and alpha of one chunk of records rec (A, F, C) at the
     pixels kx, ky (A, 1, P): (dx, dy, e0, e1, n0, n1, w, cover, aw, alpha),
-    each (A, C, P), in the kernels' order of operations."""
+    each (A, C, P), in the kernels' order of operations; `keep` (A, C, P),
+    where given, drops the pairs outside it from the cover."""
     def field(f):
         return rec[:, f, :, None]                          # (A, C, 1)
     dx = kx - field(_C_SX)
@@ -112,20 +229,25 @@ def _chunk_alpha(rec, kx, ky):
     q = 64.0 * (n0 * n0 + n1 * n1)
     w = torch.exp(-0.5 * q)
     cover = (torch.abs(n0) <= 0.5) & (torch.abs(n1) <= 0.5) & (w >= 1e-4)
+    if keep is not None:
+        cover = cover & keep
     aw = field(_C_AEFF) * w
     alpha = torch.clamp(torch.where(cover, aw, 0.0), max=ALPHA_MAX)
     return dx, dy, e0, e1, n0, n1, w, cover, aw, alpha
 
 
-def composite_plain(records, counts, kx, ky, carry) -> torch.Tensor:
+def composite_plain(records, counts, kx, ky, carry, keep=None
+                    ) -> torch.Tensor:
     """The kernel's function on tile-aligned inputs: records (T, F, M),
     counts (T,), kx/ky (T, 1, P), carry (T, 8, P) -> new (T, 8, P).
 
     Chunk c of tile t runs only if c < ceil(counts[t] / 128) and the tile's
     max transmittance is above 1e-6 (the tile-wide early exit); within a
-    chunk the exclusive transmittance is a sequential product. Not
-    autograd-safe (it updates its accumulators in place); composite_records
-    differentiates it."""
+    chunk the exclusive transmittance is a sequential product. `keep`
+    (T, M, P), where given, composites only those (record, pixel) pairs
+    (`composite_walk_keep` with K1_PPT and counts: the pairs K1 visits).
+    Not autograd-safe (it updates its accumulators in place);
+    composite_records differentiates it."""
     t_tiles, _, m = records.shape
     acc = carry[:, 0:5].clone()                      # (T, 5, P)
     n_chunks = (counts.to(torch.int64) + CHUNK - 1) // CHUNK
@@ -134,8 +256,10 @@ def composite_plain(records, counts, kx, ky, carry) -> torch.Tensor:
         idx = go.nonzero().squeeze(1)
         if idx.numel() == 0:
             break       # T only falls, so no tile reopens in later chunks
-        rec = records[idx, :, c * CHUNK:(c + 1) * CHUNK]   # (A, F, C)
-        alpha = _chunk_alpha(rec, kx[idx], ky[idx])[-1]    # (A, C, P)
+        cols = slice(c * CHUNK, (c + 1) * CHUNK)
+        rec = records[idx, :, cols]                        # (A, F, C)
+        alpha = _chunk_alpha(rec, kx[idx], ky[idx],
+                             None if keep is None else keep[idx, cols])[-1]
         cp = torch.cumprod(1.0 - alpha, dim=1)
         excl = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
         a = acc[idx]
@@ -152,7 +276,8 @@ def composite_plain(records, counts, kx, ky, carry) -> torch.Tensor:
     return out
 
 
-def _composite_bwd_tiles(records, counts, kx, ky, carry, fwd_out, g):
+def _composite_bwd_tiles(records, counts, kx, ky, carry, fwd_out, g,
+                         keep=None):
     """composite_bwd_plain on one batch of tiles."""
     m = records.shape[2]
     d_rec = torch.zeros_like(records)
@@ -170,7 +295,7 @@ def _composite_bwd_tiles(records, counts, kx, ky, carry, fwd_out, g):
         cols = slice(c * CHUNK, (c + 1) * CHUNK)
         rec = records[idx, :, cols]                          # (A, F, C)
         dx, dy, e0, e1, n0, n1, w, cover, aw, alpha = _chunk_alpha(
-            rec, kx[idx], ky[idx])
+            rec, kx[idx], ky[idx], None if keep is None else keep[idx, cols])
         one_m = 1.0 - alpha
         cp = torch.cumprod(one_m, dim=1)
         excl = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
@@ -206,19 +331,24 @@ def _composite_bwd_tiles(records, counts, kx, ky, carry, fwd_out, g):
     return d_rec
 
 
-def composite_bwd_plain(records, counts, kx, ky, carry, fwd_out, g):
+def composite_bwd_plain(records, counts, kx, ky, carry, fwd_out, g,
+                        keep=None):
     """The backward kernel's function (the reference's
     `_composite_bwd_kernel`): d_records (T, 16, M) of the forward
     records (T, 16, M), counts, kx/ky (T, 1, P), carry -> fwd_out (T, 8, P)
     under the upstream cotangent g (T, 8, P). It re-runs the forward walk
     with its early exit, takes the suffix sums as the saved totals minus
     the inclusive prefix, and fills the ten field rows (rows 10-15 stay 0).
-    Tiles are processed PLAIN_BATCH_TILES at a time."""
+    `keep` (T, M, P), where given, takes only those (record, pixel) pairs
+    (`composite_walk_keep` with K8_PPT, without counts: the pairs K8
+    visits). Tiles are
+    processed PLAIN_BATCH_TILES at a time."""
     d_rec = torch.zeros_like(records)
     for t0 in range(0, records.shape[0], PLAIN_BATCH_TILES):
         sl = slice(t0, t0 + PLAIN_BATCH_TILES)
-        d_rec[sl] = _composite_bwd_tiles(records[sl], counts[sl], kx[sl],
-                                         ky[sl], carry[sl], fwd_out[sl], g[sl])
+        d_rec[sl] = _composite_bwd_tiles(
+            records[sl], counts[sl], kx[sl], ky[sl], carry[sl], fwd_out[sl],
+            g[sl], None if keep is None else keep[sl])
     return d_rec
 
 
@@ -265,13 +395,20 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def deepest_first(counts: torch.Tensor) -> torch.Tensor:
+    """The order in which K1 and K8 take their items: by descending count,
+    ties in index order (int64). It decides only which tiles start first;
+    the results do not depend on it."""
+    return torch.argsort(counts, descending=True, stable=True)
+
+
 def _launch(records, counts, sel, kx, ky, carry, out):
     records = records.contiguous()
     counts = counts.to(torch.int32).contiguous()
     kx, ky = kx.contiguous(), ky.contiguous()
     p = carry.shape[-1]
     COMPOSITE(records, counts,
-              sel, kx,
+              sel, deepest_first(counts), kx,
               ky, carry, out,
               records.shape[0], _F, records.shape[2], p,
               stream=_stream(records))
@@ -297,7 +434,7 @@ def composite_records_bwd(records, counts, sel, kx, ky, carry, fwd_out, g):
     carry, fwd_out = carry.contiguous(), fwd_out.contiguous()
     g = g.contiguous()
     COMPOSITE_BWD(records, counts,
-                  sel, kx,
+                  sel, deepest_first(counts), kx,
                   ky, carry, fwd_out,
                   g, d_rec, records.shape[0], _F,
                   records.shape[2], kx.shape[-1], stream=_stream(records))
