@@ -78,12 +78,19 @@ on the same card at each of those call sites. Phases:
   (m) K10 apply_cutkeys and K11-K13 (merge tree, every cross pass, every
       finishing pass) against their plain versions at the inputs one such
       10M frame gives them, keys exact and (key, value) multisets equal;
-      every multi-stage pass of K12 exactly equal to its single stages and
-      each single stage (the kernel with one stage) to plain; the whole
-      `merge_sorted_rows`, its launches after K11 enqueued by one host
-      call, against `torch.sort` (keys, multisets, sortedness, live count)
-      in both row-direction forms, timed beside `torch.sort` + gather; the
-      compacting row sort timed on its own;
+      K11 and every K13 also bit-equal (keys and values) to their earlier
+      shared-memory form (`fourdgs_torch/tools/csrc/merge_shared_stages.cu`),
+      timed beside it; every multi-stage pass of K12 exactly equal to its
+      single stages and each single stage (the kernel with one stage) to
+      plain; the whole `merge_sorted_rows`, its launches after K11
+      enqueued by one host call, against `torch.sort` (keys, multisets,
+      sortedness, live count) in both row-direction forms, timed beside
+      `torch.sort` + gather; the compacting row sort timed on its own;
+      then adversarial inputs made on the card, in both row forms (all
+      keys equal, all DEAD, presorted, rows of 256 and of 16,384, an array
+      of one block, whose final run is ascending): K11 and every K13
+      bit-equal to the earlier form, the merge's keys equal to
+      `torch.sort`'s and its (key, value) multiset equal;
   (n) the 20K-splat converged frame under the merge kernels, card against
       CPU, and on the card against the default sort backend: integer
       binning outputs and per-tile pair multisets equal, the image within
@@ -1498,7 +1505,9 @@ def phase_sort_kernels(captured):
     from fourdgs_torch.ops import sort_checks as SC
     from fourdgs_torch.ops import sort_cuda as S
     from fourdgs_torch.render import tiles as TT
+    from fourdgs_torch.tools import sort_split as SS
 
+    e_tree, e_finish = SS.shared_stage_kernels()
     results = {}
     # K10: the standalone cut.
     check(len(captured["tiles.apply_cutkeys"]) == 1, "(m) K10: not one call")
@@ -1593,16 +1602,23 @@ def phase_sort_kernels(captured):
     check(torch.equal(gk, pk), "(m) K11 merge_tree: keys differ from plain")
     check(_same_pairs(gk, gv, pk, pv, run=block), "(m) K11 merge_tree: a "
           "block's (key, value) multiset differs from plain")
+    ek, ev = SS.earlier_merge_tree(e_tree, *t_args)
+    torch.cuda.synchronize()
+    check(torch.equal(gk, ek) and torch.equal(gv, ev), "(m) K11 merge_tree "
+          "differs from its earlier form")
     ms = cuda_ms(lambda: S.merge_tree(*t_args), 20)
+    earlier_ms = cuda_ms(lambda: SS.earlier_merge_tree(e_tree, *t_args), 20)
     plain_ms = cuda_ms(lambda: S.merge_tree_plain(*t_args), 5)
     levels = range(c.bit_length(), block.bit_length())    # log2(run_out)
     label = f"{n:,} pairs, rows of {c} -> runs of {block:,}"
-    results["K11 merge_tree"] = _sites([site(
+    k11 = results["K11 merge_tree"] = _sites([dict(site(
         label, 0.0, ms, plain_ms, 2 * nbytes(t_key, t_val),
-        n // 2 * sum(levels) * CMPX_OPS)])
-    print(f"(m) K11 merge_tree: {label} ({sum(levels)} stages in shared "
-          f"memory), keys exact, blocks' multisets equal; kernel {ms:.4f} "
-          f"ms, plain {plain_ms:.4f} ms")
+        n // 2 * sum(levels) * CMPX_OPS), earlier_ms=earlier_ms)])
+    k11["earlier_ms"] = earlier_ms
+    print(f"(m) K11 merge_tree: {label} ({sum(levels)} stages in register "
+          f"rounds), keys exact, blocks' multisets equal, bit-equal to the "
+          f"earlier form; kernel {ms:.4f} ms (earlier form {earlier_ms:.4f} "
+          f"ms), plain {plain_ms:.4f} ms")
     del gk, gv, pk, pv
 
     # K12 and K13 at every launch of the schedule, walked from what the
@@ -1655,13 +1671,23 @@ def phase_sort_kernels(captured):
             check(_same_pairs(gk, gv, pk, pv, run=block), f"(m) K13 "
                   f"merge_finish (run {run_out}): a block's multiset differs "
                   f"from plain")
+            ek, ev = SS.earlier_merge_finish(e_finish, key.clone(),
+                                             val.clone(), run_out, block)
+            torch.cuda.synchronize()
+            check(torch.equal(gk, ek) and torch.equal(gv, ev), f"(m) K13 "
+                  f"merge_finish (run {run_out}) differs from its earlier "
+                  f"form")
             args = (key, val, run_out, block)
             ms = _net_ms(S.merge_finish, args, 10)
+            earlier_ms = _net_ms(
+                lambda k, v, r, b: SS.earlier_merge_finish(e_finish, k, v, r,
+                                                           b), args, 10)
             plain_ms = cuda_ms(lambda: S.merge_finish_plain(
                 key, val, block, run_out), 3)
-            k13_sites.append(site(
+            k13_sites.append(dict(site(
                 f"run {run_out:,}", 0.0, ms, plain_ms, 2 * nbytes(key, val),
-                n // 2 * (block.bit_length() - 1) * CMPX_OPS))
+                n // 2 * (block.bit_length() - 1) * CMPX_OPS),
+                earlier_ms=earlier_ms))
             key, val = gk, gv
     check(bool(SC.is_sorted(key)[0]), "(m) the walked schedule did not sort")
     k12 = results["K12 merge_cross_stage"] = _sites(k12_sites)
@@ -1689,11 +1715,14 @@ def phase_sort_kernels(captured):
           f"read and one write of the arrays from device memory; they stay "
           f"in L2 between the passes)")
     k13 = results["K13 merge_finish"] = _sites(k13_sites)
+    k13["earlier_ms"] = sum(x["earlier_ms"] for x in k13_sites)
     print(f"(m) K13 merge_finish: {len(k13_sites)} calls "
-          f"({block.bit_length() - 1} stages in shared memory each), keys "
-          f"exact, blocks' multisets equal; "
-          f"{', '.join(format(x['ms'], '.4f') for x in k13_sites)} ms, all "
-          f"{k13['ms']:.4f} ms, plain {k13['plain_ms']:.4f} ms")
+          f"({block.bit_length() - 1} stages in register rounds each), keys "
+          f"exact, blocks' multisets equal, each bit-equal to the earlier "
+          f"form; {', '.join(format(x['ms'], '.4f') for x in k13_sites)} ms, "
+          f"all {k13['ms']:.4f} ms (earlier form "
+          f"{', '.join(format(x['earlier_ms'], '.4f') for x in k13_sites)}, "
+          f"all {k13['earlier_ms']:.4f} ms), plain {k13['plain_ms']:.4f} ms")
     # The launches after K11 as the path enqueues them: one host call.
     levels_ms = _net_ms(S.merge_levels, (key, val, block), 10)
     print(f"(m) merge_levels: the {len(steps)} launches after K11 enqueued "
@@ -1711,6 +1740,90 @@ def phase_sort_kernels(captured):
         results[name]["library_ms"] = None
     return results, dict(merge_ms=whole[True], library_ms=lib_ms,
                          compact_pairs_ms=compact_ms)
+
+
+def _rows_of(kind, r, c, gen):
+    """(r, c) int32 key rows, each sorted ascending, and the values 0 ...
+    r * c - 1, for one adversarial case of phase (m)."""
+    import torch
+    dev = gen.device
+    if kind == "all keys equal":
+        k = torch.full((r, c), 5, dtype=torch.int32, device=dev)
+    elif kind == "all DEAD":
+        k = torch.full((r, c), 2 ** 31 - 1, dtype=torch.int32, device=dev)
+    elif kind == "presorted":
+        k = torch.arange(r * c, dtype=torch.int32, device=dev).reshape(r, c)
+    else:
+        k = torch.sort(torch.randint(0, 1 << 20, (r, c), generator=gen,
+                                     device=dev, dtype=torch.int32),
+                       dim=1).values
+    v = torch.arange(r * c, dtype=torch.int32, device=dev).reshape(r, c)
+    return k, v
+
+
+def phase_merge_adversarial(dev):
+    """(m) K11 and every K13 on adversarial inputs made on the card, in both
+    row forms: bit-equal (keys and values) to the earlier form, and the
+    whole merge's keys equal to torch.sort's, its multiset equal."""
+    import torch
+    from fourdgs_torch.ops import sort_cuda as S
+    from fourdgs_torch.tools import sort_split as SS
+
+    e_tree, e_finish = SS.shared_stage_kernels()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    block = S.MERGE_BLOCK
+    cases = (("all keys equal", 512, 512), ("all DEAD", 512, 512),
+             ("presorted", 512, 512), ("rows of 256", 1024, 256),
+             ("rows of 16,384", 16, 16384), ("one block", 32, 512))
+    n_finish = 0
+    for kind, r, c in cases:
+        k2, v2 = _rows_of(kind, r, c, gen)
+        for alt in (True, False):
+            rk, rv = k2.clone(), v2.clone()
+            if alt:
+                rk[1::2], rv[1::2] = k2[1::2].flip(1), v2[1::2].flip(1)
+            fk, fv = (rk.reshape(-1), rv.reshape(-1)) if kind == "one block" \
+                else S._pad_rows(rk, rv)
+            n = fk.shape[0]
+            blk = min(block, n)
+            what = f"(m) {kind}, rows_alternating={alt}"
+            gk, gv = S.merge_tree(fk, fv, c, blk, alt)
+            ek, ev = SS.earlier_merge_tree(e_tree, fk, fv, c, blk, alt)
+            torch.cuda.synchronize()
+            check(torch.equal(gk, ek) and torch.equal(gv, ev),
+                  f"{what}: K11 differs from its earlier form")
+            check(torch.equal(gk, S.merge_tree_plain(fk, fv, c, blk,
+                                                     alt)[0]),
+                  f"{what}: K11 keys differ from plain")
+            finishes = []
+            if kind == "one block":
+                # K13 on the whole array (its run ascending): the bitonic
+                # input of two half-array runs.
+                hk, hv = S.merge_tree(fk, fv, c, n // 2, alt)
+                finishes.append((hk, hv, n, n))
+            k, v = gk, gv
+            for st in S.merge_schedule(n, blk, S.CROSS_GROUP):
+                if st[0] == "cross":
+                    k, v = S.merge_cross_stages(k, v, st[1], st[3], st[2])
+                else:
+                    finishes.append((k.clone(), v.clone(), st[1], blk))
+                    k, v = S.merge_finish(k, v, st[1], blk)
+            for hk, hv, run_out, fb in finishes:
+                a = S.merge_finish(hk.clone(), hv.clone(), run_out, fb)
+                b = SS.earlier_merge_finish(e_finish, hk.clone(), hv.clone(),
+                                            run_out, fb)
+                torch.cuda.synchronize()
+                check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                      f"{what}: K13 (run {run_out}) differs from its "
+                      f"earlier form")
+                n_finish += 1
+            check(torch.equal(k, torch.sort(fk).values),
+                  f"{what}: keys differ from torch.sort")
+            check(_same_pairs(k, v, fk, fv), f"{what}: (key, value) "
+                  f"multisets differ")
+    print(f"(m) adversarial inputs ({', '.join(c[0] for c in cases)}; both "
+          f"row forms): K11 and {n_finish} K13 launches bit-equal to the "
+          f"earlier form, keys equal torch.sort's, multisets equal")
 
 
 def phase_sorted_small_frame(dev, default):
@@ -1893,7 +2006,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     t0 = time.time()
-    build_kernels(list(kernels.values()))
+    # With the earlier form of K11 and K13, which (m) holds them to.
+    from fourdgs_torch.tools.sort_split import shared_stage_kernels
+    build_kernels(list(kernels.values()) + list(shared_stage_kernels()))
     print(f"(a) {kind}, {torch.cuda.device_count()} visible, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built "
           f"in {time.time() - t0:.1f} s")
@@ -2045,6 +2160,8 @@ def main() -> int:
     sorted_path = "converged, kernel-sorted"
     results[sorted_path], merge = phase_sort_kernels(captured)
     del captured
+    torch.cuda.empty_cache()
+    phase_merge_adversarial(dev)
     torch.cuda.empty_cache()
     # (n) the 20K frame under the merge kernels: card against CPU, and
     # against the default sort backend.

@@ -29,6 +29,7 @@ import ctypes
 import torch
 from torch.profiler import record_function
 
+from fourdgs_torch import resolve_device
 from fourdgs_torch.ops import pack_cuda
 from fourdgs_torch.ops._build import CudaKernel
 
@@ -97,11 +98,12 @@ def pack_records(proj, tile_splat: torch.Tensor, tile_live: torch.Tensor,
     return out
 
 
-def identity_carry(t_tiles: int, p: int, device="cpu",
+def identity_carry(t_tiles: int, p: int, device=None,
                    dtype=torch.float32) -> torch.Tensor:
     """(T, 8, P) carry for the first depth slab: empty accumulators, full
-    transmittance."""
-    c = torch.zeros((t_tiles, 8, p), dtype=dtype, device=device)
+    transmittance; on `device` (None: the card, default_device())."""
+    c = torch.zeros((t_tiles, 8, p), dtype=dtype,
+                    device=resolve_device(device))
     c[:, 4] = 1.0
     return c
 

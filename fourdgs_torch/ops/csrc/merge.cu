@@ -15,11 +15,12 @@
 // the stages d = run_out/2 ... 1; a stage compare-exchanges (i, i + d) for
 // every i with (i & d) == 0, strictly (equal keys never move).
 //
-//   K11 fourdgs_merge_tree: a block loads B consecutive elements (B / C
-//     whole rows) into shared memory, reading every odd row back to front
-//     when the caller's rows are all ascending, runs every level from runs
-//     of C up to runs of B there, and writes its run once. One launch where
-//     the TPU version pays one call per level.
+//   K11 fourdgs_merge_tree: a block loads a tile of 16,384 consecutive
+//     elements (whole rows, whole runs of B) straight into registers,
+//     reading every odd row back to front when the caller's rows are all
+//     ascending, runs every level from runs of C up to runs of B there and
+//     writes the tile once. One launch where the TPU version pays one call
+//     per level.
 //   K12 fourdgs_merge_cross_stages: up to four consecutive stages at
 //     distances d_hi, d_hi / 2 ... d_lo >= B of one level in one pass over
 //     the array in device memory, in place. A thread loads the 2^s elements
@@ -29,8 +30,9 @@
 //     2 * d_hi <= run_out all its elements lie in one run, whose direction
 //     it takes once. Neighbouring threads take neighbouring low-bit indices:
 //     every load and store is a full line. s = 1 is the single stage.
-//   K13 fourdgs_merge_finish: a block loads B contiguous elements and runs
-//     the stages d = B/2 ... 1 of one level in shared memory, in place.
+//   K13 fourdgs_merge_finish: a block loads a tile of 16,384 contiguous
+//     elements into registers and runs the stages d = B/2 ... 1 of one
+//     level there, in place.
 //
 //   fourdgs_merge_levels: every launch after K11 (K12's passes and K13's
 //     finishes, in the order the caller's schedule lists them) enqueued on
@@ -39,83 +41,90 @@
 // Bound on the H100: the arrays are small (16.8 MB at the 2^21 pairs of the
 // 10M-splat frame, one read and one write in 0.010 ms) and stay in the
 // 50 MB L2 between launches, so neither device memory nor arithmetic binds:
-// the cost is the number of launches and of shared-memory stages with a
-// block-wide barrier each (60 in K11, 14 per K13). The TPU kernels keep
-// 262,144 elements resident in fast memory; a Hopper block has 227 KB of
-// shared memory, so B is 16,384 pairs (128 KB) and the levels above it go
-// through K12. Design: a level with k stages above B takes ceil(k / 4)
-// passes of K12 instead of k, so the 28 cross stages of 2^21 pairs are 10
-// launches and 10 passes over the array, and the whole schedule is enqueued
-// from C, which takes the per-launch cost of a foreign-function call out.
-// In K11 and K13 each thread takes pairs a whole block apart, which is free
-// of bank conflicts for d >= 32; register-resident last stages there are
-// left to a later change.
+// the cost is the number of launches and, inside K11 and K13, how the
+// stages reach their pairs. The TPU kernels keep 262,144 elements resident
+// in fast memory; a Hopper block has 227 KB of shared memory, so B is
+// 16,384 pairs (128 KB) and the levels above it go through K12. Design: a
+// level with k stages above B takes ceil(k / 4) passes of K12 instead of k,
+// so the 28 cross stages of 2^21 pairs are 10 launches and 10 passes over
+// the array, and the whole schedule is enqueued from C, which takes the
+// per-launch cost of a foreign-function call out. K11 and K13 run their
+// stages on pairs held in registers, 16 a thread, four consecutive stages a
+// round, with one bank-conflict-free transpose through shared memory
+// between rounds (merge_rounds.cuh), and load and store with every access
+// of a warp on consecutive words and all of a thread's loads in flight at
+// once. K13's 14 stages take 2 block-wide and 2 warp barriers, where its
+// earlier form took 14 shared-memory passes with a block-wide barrier each
+// and a load loop that waited on every load; K11's 60 stages take 10
+// block-wide and 7 warp barriers. That earlier form is kept as a measuring
+// instrument in fourdgs_torch/tools/csrc/merge_shared_stages.cu.
 
 #include <cuda_runtime.h>
 
+#include "merge_rounds.cuh"
+
 namespace {
 
-constexpr int kBlockThreads = 1024;   // K11, K13: threads of a block
-constexpr int kCrossThreads = 256;    // K12
+namespace mr = merge_rounds;
 
-// One stage at distance d over the n elements of a block whose first
-// element has global index `base`. Runs of 2^run_shift elements alternate
-// direction when `alternate` is set.
-__device__ __forceinline__ void shared_stage(int* sk, int* sv, int n, int d,
-                                             long long base, int run_shift,
-                                             bool alternate) {
-  for (int q = threadIdx.x; q < (n >> 1); q += kBlockThreads) {
-    const int lo = ((q & ~(d - 1)) << 1) | (q & (d - 1));
-    const int hi = lo + d;
-    const bool desc = alternate && (((base + lo) >> run_shift) & 1);
-    const int ka = sk[lo];
-    const int kb = sk[hi];
-    if (desc ? (ka < kb) : (kb < ka)) {
-      sk[lo] = kb;
-      sk[hi] = ka;
-      const int va = sv[lo];
-      sv[lo] = sv[hi];
-      sv[hi] = va;
-    }
-  }
-  __syncthreads();
-}
+constexpr int kCrossThreads = 256;    // K12
 
 __device__ __forceinline__ int log2_of(long long x) {
   return 63 - __clzll(x);
 }
 
-__global__ void __launch_bounds__(kBlockThreads)
+// A level of K11 on a tile held in its first layout (`fresh`, just
+// loaded) or in layout 0 (left so by the level before).
+template <int M>
+__device__ __forceinline__ void tree_level(int2* s, int (&k)[mr::kElems],
+                                           int (&v)[mr::kElems], int t,
+                                           bool fresh, mr::Direction dir) {
+  if (fresh) {
+    mr::run_level<M, mr::first_layout(M)>(s, k, v, t, dir);
+  } else {
+    mr::run_level<M, 0>(s, k, v, t, dir);
+  }
+}
+
+// K11: one tile of mr::kTile pairs a block (B = block <= kTile pairs a run,
+// so a tile holds kTile / B whole blocks, or the whole array when it is
+// smaller). The tile is loaded straight into the first level's layout,
+// every odd row back to front when flip_odd_rows (a tile holds whole rows,
+// so a row is reversed inside it, tile-relative indices in 32 bits); the
+// levels from runs of c to runs of B then run as register rounds
+// (merge_rounds.cuh), and the tile is stored once.
+__global__ void __launch_bounds__(mr::kThreads)
 merge_tree_kernel(const int* __restrict__ key, const int* __restrict__ val,
                   int* __restrict__ out_key, int* __restrict__ out_val,
                   long long total, int c, int block, int flip_odd_rows) {
-  extern __shared__ int smem[];
-  int* sk = smem;
-  int* sv = smem + block;
-  const long long base = static_cast<long long>(blockIdx.x) * block;
+  extern __shared__ int2 smem[];
+  const int t = threadIdx.x;
+  const long long base = static_cast<long long>(blockIdx.x) * mr::kTile;
+  const int limit = mr::tile_limit(blockIdx.x, total);
   const int c_shift = log2_of(c);
-  for (int e = threadIdx.x; e < block; e += kBlockThreads) {
-    long long src = base + e;
-    if (flip_odd_rows && ((src >> c_shift) & 1)) {
-      const long long col = src & (c - 1);
-      src = src - col + (c - 1 - col);
-    }
-    sk[e] = key[src];
-    sv[e] = val[src];
+  const int m_last = log2_of(block) - 1;
+  // A row of a whole tile has the parity of its tile number.
+  const int odd_rows =
+      c_shift >= mr::kTileBits ? (blockIdx.x >> (c_shift - mr::kTileBits)) & 1
+                               : 0;
+  int k[mr::kElems];
+  int v[mr::kElems];
+#define MERGE_LOAD(L)                                                    \
+  mr::load<((L) < mr::kMaxLo ? (L) : mr::kMaxLo)>(                       \
+      key + base, val + base, k, v, t, limit, flip_odd_rows != 0, c_shift, \
+      odd_rows)
+  MERGE_ROUNDS_SWITCH14(c_shift <= m_last ? mr::first_layout(c_shift) : 0,
+                        MERGE_LOAD)
+#undef MERGE_LOAD
+  for (int m = c_shift; m <= m_last; ++m) {
+    const mr::Direction dir =
+        mr::level_direction(blockIdx.x, m + 1, (2LL << m) < total);
+    const bool fresh = m == c_shift;
+#define MERGE_LEVEL(M) tree_level<M>(smem, k, v, t, fresh, dir)
+    MERGE_ROUNDS_SWITCH14(m, MERGE_LEVEL)
+#undef MERGE_LEVEL
   }
-  __syncthreads();
-  for (int half = c; half < block; half <<= 1) {
-    const long long run_out = 2LL * half;
-    const int run_shift = log2_of(run_out);
-    const bool alternate = run_out < total;
-    for (int d = half; d > 0; d >>= 1) {
-      shared_stage(sk, sv, block, d, base, run_shift, alternate);
-    }
-  }
-  for (int e = threadIdx.x; e < block; e += kBlockThreads) {
-    out_key[base + e] = sk[e];
-    out_val[base + e] = sv[e];
-  }
+  mr::store(smem, out_key + base, out_val + base, k, v, t, limit);
 }
 
 // S stages at distances d_lo << (S - 1) ... d_lo, one thread 2^S elements.
@@ -163,26 +172,39 @@ merge_cross_stages_kernel(int* __restrict__ key, int* __restrict__ val,
   }
 }
 
-__global__ void __launch_bounds__(kBlockThreads)
+// K13's level m = M on one tile, loaded in its first layout.
+template <int M>
+__device__ __forceinline__ void finish_level(int2* s, const int* tk,
+                                             const int* tv,
+                                             int (&k)[mr::kElems],
+                                             int (&v)[mr::kElems], int t,
+                                             int limit, mr::Direction dir) {
+  mr::load<mr::first_layout(M)>(tk, tv, k, v, t, limit, false, 0, 0);
+  mr::run_level<M, mr::first_layout(M)>(s, k, v, t, dir);
+}
+
+// K13: the stages B/2 ... 1 of the level that makes runs of 2^run_shift
+// pairs, on one tile of mr::kTile pairs a block: loaded from device memory
+// in the level's first layout (at B = kTile register j of thread t holds
+// pair j * 1,024 + t: coalesced), run as register rounds, stored once,
+// coalesced, in place.
+__global__ void __launch_bounds__(mr::kThreads)
 merge_finish_kernel(int* __restrict__ key, int* __restrict__ val,
                     long long total, int block, int run_shift,
                     int alternate) {
-  extern __shared__ int smem[];
-  int* sk = smem;
-  int* sv = smem + block;
-  const long long base = static_cast<long long>(blockIdx.x) * block;
-  for (int e = threadIdx.x; e < block; e += kBlockThreads) {
-    sk[e] = key[base + e];
-    sv[e] = val[base + e];
-  }
-  __syncthreads();
-  for (int d = block >> 1; d > 0; d >>= 1) {
-    shared_stage(sk, sv, block, d, base, run_shift, alternate != 0);
-  }
-  for (int e = threadIdx.x; e < block; e += kBlockThreads) {
-    key[base + e] = sk[e];
-    val[base + e] = sv[e];
-  }
+  extern __shared__ int2 smem[];
+  const int t = threadIdx.x;
+  const long long base = static_cast<long long>(blockIdx.x) * mr::kTile;
+  const int limit = mr::tile_limit(blockIdx.x, total);
+  const mr::Direction dir =
+      mr::level_direction(blockIdx.x, run_shift, alternate != 0);
+  int k[mr::kElems];
+  int v[mr::kElems];
+#define MERGE_FINISH(M) \
+  finish_level<M>(smem, key + base, val + base, k, v, t, limit, dir)
+  MERGE_ROUNDS_SWITCH14(log2_of(block) - 1, MERGE_FINISH)
+#undef MERGE_FINISH
+  mr::store(smem, key + base, val + base, k, v, t, limit);
 }
 
 bool pow2(long long x) { return x > 0 && (x & (x - 1)) == 0; }
@@ -193,10 +215,11 @@ int host_log2(long long x) {
   return s;
 }
 
-// Shared memory of a block of `block` pairs, or 0 when it does not fit.
-size_t block_smem(int block) {
-  const size_t bytes = 2ull * block * sizeof(int);
-  return bytes <= 227 * 1024 ? bytes : 0;
+// Shared memory of K11's and K13's blocks: one tile of (key, value) pairs.
+constexpr size_t kTileSmem = sizeof(int2) * mr::kTile;
+
+unsigned tiles(long long total) {
+  return static_cast<unsigned>((total + mr::kTile - 1) / mr::kTile);
 }
 
 template <typename Kernel>
@@ -216,14 +239,14 @@ extern "C" int fourdgs_merge_tree(const void* key, const void* val,
                                   void* out_key, void* out_val,
                                   long long total, int c, int block,
                                   int rows_alternating, void* stream) {
-  const size_t smem = pow2(block) ? block_smem(block) : 0;
-  if (!pow2(total) || !pow2(c) || smem == 0 || c > block || block > total) {
+  if (!pow2(total) || !pow2(c) || !pow2(block) || block > mr::kTile ||
+      c > block || block > total) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = allow_smem(merge_tree_kernel, smem);
+  cudaError_t err = allow_smem(merge_tree_kernel, kTileSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  merge_tree_kernel<<<static_cast<unsigned>(total / block), kBlockThreads,
-                      smem, static_cast<cudaStream_t>(stream)>>>(
+  merge_tree_kernel<<<tiles(total), mr::kThreads, kTileSmem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(key), static_cast<const int*>(val),
       static_cast<int*>(out_key), static_cast<int*>(out_val), total, c, block,
       rows_alternating ? 0 : 1);
@@ -263,15 +286,14 @@ cudaError_t cross_stages(int* key, int* val, long long total, long long d_hi,
 
 cudaError_t finish(int* key, int* val, long long total, int block,
                    long long run_out, cudaStream_t stream) {
-  const size_t smem = pow2(block) ? block_smem(block) : 0;
-  if (!pow2(total) || !pow2(run_out) || smem == 0 || block < 2 ||
-      block > run_out || run_out > total) {
+  if (!pow2(total) || !pow2(run_out) || !pow2(block) || block < 2 ||
+      block > mr::kTile || block > run_out || run_out > total) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = allow_smem(merge_finish_kernel, smem);
+  cudaError_t err = allow_smem(merge_finish_kernel, kTileSmem);
   if (err != cudaSuccess) return err;
-  merge_finish_kernel<<<static_cast<unsigned>(total / block), kBlockThreads,
-                        smem, stream>>>(key, val, total, block,
+  merge_finish_kernel<<<tiles(total), mr::kThreads, kTileSmem, stream>>>(
+      key, val, total, block,
                                         host_log2(run_out),
                                         run_out < total ? 1 : 0);
   return cudaGetLastError();

@@ -7,12 +7,15 @@ Kernel K2 (`csrc/rowsort.cu`) and kernels K11-K13 (`csrc/merge.cu`), each
 with its plain PyTorch version. A CPU tensor runs the plain versions; a CUDA
 tensor launches the kernels.
 
-No compiler runs where the tests do, so the walks of the two kernels that
+No compiler runs where the tests do, so the walks of the kernels that
 differ most from their plain versions are also written out in plain PyTorch:
 `rowsort_compact_lists` (K2: cut, per-row lists of `cap` live slots, the
-sort on (key, position), overflowing rows through the full sort) and
+sort on (key, position), overflowing rows through the full sort),
 `merge_cross_stages_plain` (K12: several stages on the 2^s elements a thread
-holds). The tests hold them against the plain versions exactly.
+holds) and `merge_tree_rounds` / `merge_finish_rounds` (K11, K13: the
+stages in register rounds with swizzled transposes between them). The tests
+hold them against the plain versions or the network of single stages
+exactly.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ ROWSORT_COLS = 256
 # max(8, TREE_MAX // C) rows, their number rounded up to a power of two.
 TREE_MAX = 1 << 18
 _MIN_ROWS = 8
-# Pairs a block of K11 / K13 keeps in shared memory (128 KB of key + value).
+# Pairs a block of K11 / K13 holds: 16 a thread in registers, and 128 KB of
+# shared memory for the transposes between its rounds.
 MERGE_BLOCK = 1 << 14
 # Stages one pass of K12 runs at most: 2^4 keys and values a thread.
 CROSS_GROUP = 4
@@ -317,6 +321,144 @@ def merge_finish_plain(key, val, block: int, run_out: int):
     ks = torch.where(desc, ks.flip(1), ks)
     vs = torch.where(desc, vs.flip(1), vs)
     return ks.reshape(-1), vs.reshape(-1)
+
+
+# The register rounds of K11 and K13 (csrc/merge_rounds.cuh) written out:
+# a block holds a tile of 2^tile_bits pairs, 2^reg_bits a thread.
+ROUND_TILE_BITS = 14
+ROUND_REG_BITS = 4
+# Layouts up to this one keep a warp's 512 pairs in the warp: a transpose
+# between two of them needs no block-wide barrier. The kernels store from it.
+ROUND_WARP_LO = 5
+
+
+def round_layout(lo: int, tile_bits: int = ROUND_TILE_BITS,
+                 reg_bits: int = ROUND_REG_BITS) -> torch.Tensor:
+    """(threads, 2^reg_bits) tile indices of layout `lo`: register j of
+    thread t holds pair ((t >> lo) << (lo + reg_bits)) | (j << lo) |
+    (t & (2^lo - 1)), so the index bits lo ... lo + reg_bits - 1 are the
+    register's."""
+    t = torch.arange(1 << (tile_bits - reg_bits))[:, None]
+    j = torch.arange(1 << reg_bits)[None, :]
+    return ((t >> lo) << (lo + reg_bits)) | (j << lo) | (t & ((1 << lo) - 1))
+
+
+def round_swizzle(i: torch.Tensor) -> torch.Tensor:
+    """Place of tile pair i in shared memory: bits 4-7 XORed into bits 0-3,
+    which keeps every layout's transposes free of bank conflicts."""
+    return i ^ ((i >> 4) & 15)
+
+
+def level_rounds(m: int, reg_bits: int = ROUND_REG_BITS):
+    """(layout lo, stages) of the rounds that run the stages 2^m ... 1 of a
+    level, from the top: the stages of a round are the register bits
+    stages - 1 ... 0 of its layout."""
+    rounds, top = [], m
+    while top >= 0:
+        lo = max(top - (reg_bits - 1), 0)
+        rounds.append((lo, top - lo + 1))
+        top = lo - 1
+    return rounds
+
+
+def _round_stage(k, v, r: int):
+    """The compare-exchange of registers j and j | 2^r, ascending, strict."""
+    shape = k.shape
+    h = 1 << r
+    k4 = k.reshape(*shape[:-1], -1, 2, h)
+    v4 = v.reshape(*shape[:-1], -1, 2, h)
+    ka, kb = k4[..., 0, :], k4[..., 1, :]
+    va, vb = v4[..., 0, :], v4[..., 1, :]
+    swap = kb < ka
+    k = torch.stack([torch.where(swap, kb, ka), torch.where(swap, ka, kb)], -2)
+    v = torch.stack([torch.where(swap, vb, va), torch.where(swap, va, vb)], -2)
+    return k.reshape(shape), v.reshape(shape)
+
+
+def _round_walk(key, val, levels, src_of, tile_bits: int, reg_bits: int):
+    """The tiles of the flat arrays loaded into the first level's layout
+    (pair i read from src_of(i); past the end, DEAD), every level (m,
+    run_shift, alternate) run as register rounds with transposes through
+    the swizzled shared memory between them, its descending runs' keys
+    complemented around it, then stored from the warp layout ROUND_WARP_LO,
+    reached from the last round's layout 0 by one more transpose."""
+    n = key.shape[0]
+    tile = 1 << tile_bits
+    tiles = -(-n // tile)
+    first = torch.arange(tiles, device=key.device)[:, None, None] * tile
+
+    def at(layout_lo):
+        return first + round_layout(layout_lo, tile_bits,
+                                    reg_bits).to(key.device)
+
+    def transpose(k, v, lo_from, lo_to):
+        smem = torch.empty((tiles, tile, 2), dtype=key.dtype,
+                           device=key.device)
+        place = round_swizzle(at(lo_from) - first).reshape(tiles, -1, 1)
+        smem.scatter_(1, place.expand(-1, -1, 2),
+                      torch.stack([k, v], -1).reshape(tiles, -1, 2))
+        place = round_swizzle(at(lo_to) - first).reshape(tiles, -1, 1)
+        got = smem.gather(1, place.expand(-1, -1, 2))
+        return got[..., 0].reshape(k.shape), got[..., 1].reshape(v.shape)
+
+    def flipped(k, lo, run_shift, alternate):
+        desc = ((at(lo) >> run_shift) & 1).to(torch.int32) * int(alternate)
+        return k ^ -desc
+
+    lo = level_rounds(levels[0][0], reg_bits)[0][0] if levels else 0
+    src = src_of(at(lo))
+    inside = src < n
+    src = src.clamp(max=n - 1)
+    k = torch.where(inside, key[src], DEAD)
+    v = torch.where(inside, val[src], 0)
+    for m, run_shift, alternate in levels:
+        k = flipped(k, lo, run_shift, alternate)
+        for round_lo, stages in level_rounds(m, reg_bits):
+            if round_lo != lo:
+                k, v = transpose(k, v, lo, round_lo)
+                lo = round_lo
+            for r in reversed(range(stages)):
+                k, v = _round_stage(k, v, r)
+        k = flipped(k, lo, run_shift, alternate)
+    store_lo = min(ROUND_WARP_LO, tile_bits - reg_bits)
+    k, v = transpose(k, v, lo, store_lo)
+    out_k = torch.empty(tiles * tile, dtype=key.dtype, device=key.device)
+    out_v = torch.empty_like(out_k)
+    out_k[at(store_lo).reshape(-1)] = k.reshape(-1)
+    out_v[at(store_lo).reshape(-1)] = v.reshape(-1)
+    return out_k[:n], out_v[:n]
+
+
+def merge_tree_rounds(key, val, c: int, block: int,
+                      rows_alternating: bool,
+                      tile_bits: int = ROUND_TILE_BITS,
+                      reg_bits: int = ROUND_REG_BITS):
+    """K11 as its blocks run it: the levels from runs of c to runs of block
+    (block <= 2^tile_bits) as register rounds, the odd rows read back to
+    front by the first load unless rows_alternating. Equals the network of
+    single stages bit for bit (keys and values)."""
+    n = key.shape[0]
+    flip = not rows_alternating
+    levels = [(m, m + 1, (2 << m) < n)
+              for m in range(c.bit_length() - 1, block.bit_length() - 1)]
+
+    def src_of(i):
+        if not flip:
+            return i
+        return torch.where(((i // c) % 2) == 1, i ^ (c - 1), i)
+    return _round_walk(key, val, levels, src_of, tile_bits, reg_bits)
+
+
+def merge_finish_rounds(key, val, run_out: int, block: int,
+                        tile_bits: int = ROUND_TILE_BITS,
+                        reg_bits: int = ROUND_REG_BITS):
+    """K13 as its blocks run it: the stages block/2 ... 1 of the level that
+    makes runs of run_out, as register rounds on tiles of 2^tile_bits
+    pairs. Equals those single stages bit for bit (keys and values)."""
+    n = key.shape[0]
+    levels = [(block.bit_length() - 2, run_out.bit_length() - 1,
+               run_out < n)]
+    return _round_walk(key, val, levels, lambda i: i, tile_bits, reg_bits)
 
 
 def merge_tree(key, val, c: int, block: int = MERGE_BLOCK,

@@ -171,7 +171,7 @@ def _synthetic_tiles(rng, t_tiles, m, p, tile_w):
     counts[0] = m
     f[:, 9] = rng.uniform(0.2, 0.95, (t_tiles, m)) * (
         np.arange(m)[None] < counts[:, None])
-    carry = C.identity_carry(t_tiles, p)
+    carry = C.identity_carry(t_tiles, p, device="cpu")
     carry[:, 0:4] = torch.from_numpy(
         rng.uniform(0, 0.2, (t_tiles, 4, p)).astype(np.float32))
     carry[:, 4] = torch.from_numpy(

@@ -304,7 +304,7 @@ def _seam_free_composite(t_tiles=2, m=128, p=16):
 def test_gradcheck_composite_records():
     f, kx, ky = _seam_free_composite()
     counts = torch.tensor([100, 128], dtype=torch.int32)
-    carry = TC.identity_carry(2, 16, dtype=torch.float64)
+    carry = TC.identity_carry(2, 16, device="cpu", dtype=torch.float64)
     carry[:, 0:4] = 0.1
     carry[:, 4] = 0.7
     rec = torch.tensor(f, requires_grad=True)
@@ -322,7 +322,7 @@ def test_gradcheck_composite_records_at():
     counts = torch.tensor([100, 0], dtype=torch.int32)   # one filler
     sel = torch.tensor([2, 0])
     kx4, ky4 = _t(np.concatenate([kx, kx])), _t(np.concatenate([ky, ky]))
-    carry = TC.identity_carry(4, 16, dtype=torch.float64)
+    carry = TC.identity_carry(4, 16, device="cpu", dtype=torch.float64)
     carry[:, 0:4] = 0.05
     carry[:, 4] = 0.6
     rec = torch.tensor(f, requires_grad=True)

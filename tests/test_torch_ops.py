@@ -172,7 +172,7 @@ def test_composite_records_matches_reference():
                                 jnp.asarray(carry))
     got = TC.composite_records(torch.from_numpy(f), torch.from_numpy(counts),
                                torch.from_numpy(kx), torch.from_numpy(ky),
-                               TC.identity_carry(t_tiles, p))
+                               TC.identity_carry(t_tiles, p, device="cpu"))
     _assert_carry_close(got.numpy(), want)
     assert np.asarray(want)[0, 4].max() <= 1e-6     # tile 0 saturated
     assert np.asarray(want)[:, 3].max() > 0.1       # real coverage

@@ -60,7 +60,7 @@ def test_cpu_tensors_take_the_plain_versions():
     rec = torch.zeros((2, 16, 128), requires_grad=True)
     counts = torch.tensor([3, 0], dtype=torch.int32)
     kx = torch.zeros((2, 1, 256))
-    carry = composite_cuda.identity_carry(2, 256)
+    carry = composite_cuda.identity_carry(2, 256, device="cpu")
     out = composite_cuda.composite_records(rec, counts, kx, kx, carry)
     out = composite_cuda.composite_records_at(rec[:1], counts[:1],
                                               torch.tensor([1]), kx, kx,
@@ -121,7 +121,7 @@ def test_wrappers_refuse_mixed_devices():
         sort_cuda.rowsort_compact(key, key, 8, row_len=16, cut=meta_cut)
     rec = torch.zeros((2, 16, 128))
     kx = torch.zeros((2, 1, 256))
-    carry = composite_cuda.identity_carry(2, 256)
+    carry = composite_cuda.identity_carry(2, 256, device="cpu")
     meta_counts = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         composite_cuda.composite_records(rec, meta_counts, kx, kx, carry)
@@ -146,8 +146,23 @@ def test_default_device_is_the_card():
     assert fourdgs_torch.resolve_device(None) == fourdgs_torch.default_device()
     assert fourdgs_torch.resolve_device("cpu") == torch.device("cpu")
     for fn in (Camera.create, build_cube_scene, params4d_from_numpy,
-               tile_pixel_ndc):
+               tile_pixel_ndc, composite_cuda.identity_carry):
         assert inspect.signature(fn).parameters["device"].default is None, fn
+
+
+def test_identity_carry_goes_to_the_default_device(monkeypatch):
+    """Without `device` the first slab's carry is made on default_device()
+    (the meta device stands in for the card here); with one, there."""
+    import fourdgs_torch
+    monkeypatch.setattr(fourdgs_torch, "default_device",
+                        lambda: torch.device("meta"))
+    carry = composite_cuda.identity_carry(3, 16)
+    assert carry.device.type == "meta"
+    assert carry.shape == (3, 8, 16) and carry.dtype == torch.float32
+    cpu = composite_cuda.identity_carry(3, 16, device="cpu")
+    assert cpu.device.type == "cpu"
+    assert (cpu[:, 4] == 1).all() and cpu[:, :4].abs().sum() == 0
+    assert cpu[:, 5:].abs().sum() == 0
 
 
 def _params(n=7):

@@ -182,3 +182,34 @@ def test_sort_split_arguments_and_histogram(monkeypatch):
             float((live > t).double().mean()))
     same = SS.live_histogram(key, kw["row_len"], None, kw["key_shift"])
     assert same["after_cut"] == same["before_cut"] == before
+
+
+def test_sort_split_merge_inputs():
+    """The merge kernels' split: its flags, and the inputs it hands K11 and
+    every K13 (made and walked here on the CPU at 2^16 pairs): sorted rows
+    of 512, odd rows descending; before each finish, the state the schedule
+    leaves, which the finish's plain version sorts block by block."""
+    from fourdgs_torch.ops import sort_cuda as S
+    from fourdgs_torch.tools import sort_split as SS
+    opts = SS.parse_args(["--merge-only", "--earlier-only"])
+    assert opts.merge_only and opts.earlier_only
+    assert not SS.parse_args([]).merge_only
+    pairs = 1 << 16
+    (rk, rv), finishes = SS.merge_inputs("cpu", pairs)
+    rows = rk.reshape(-1, SS.MERGE_ROW).long()
+    assert (rows[0::2].diff(dim=1) >= 0).all()
+    assert (rows[1::2].diff(dim=1) <= 0).all()
+    assert torch.equal(torch.sort(rv)[0], torch.arange(pairs,
+                                                       dtype=torch.int32))
+    assert [r for r, _, _ in finishes] == [2 * S.MERGE_BLOCK, 4 * S.MERGE_BLOCK]
+    for run_out, k, v in finishes:
+        sk = S.merge_finish_plain(k, v, S.MERGE_BLOCK, run_out)[0]
+        blocks = sk.reshape(-1, S.MERGE_BLOCK).long()
+        desc = (torch.arange(blocks.shape[0]) * S.MERGE_BLOCK // run_out
+                ) % 2 == 1
+        if run_out == pairs:
+            desc[:] = False
+        d = blocks.diff(dim=1)
+        assert ((d >= 0).all(1) | desc).all() and ((d <= 0).all(1) | ~desc
+                                                   ).all()
+    assert torch.equal(torch.sort(finishes[-1][1])[0], torch.sort(rk)[0])
