@@ -107,7 +107,12 @@ on the same card at each of those call sites. Phases:
   the public row pack:
   (q) `pack_rows` of ten float32 rows of 10,010,624 against `torch.stack`,
       exact; its backward launches K14 once and returns the cotangent's
-      rows exactly; both timed beside the PyTorch call.
+      rows exactly; both bit-equal to their earlier form (one thread per
+      column, `fourdgs_torch/tools/csrc/pack_rows_scalar.cu`) there and,
+      with their plain versions, at PACK_ODD_SHAPES (R 1 to 16, n = 0,
+      n % 4 != 0, n = pad_to, pad_to % 4 != 0, views 1-3 words off 16 bytes,
+      int32); both timed beside the earlier form and the PyTorch call, in
+      three turns of alternating order (medians).
 
 Any failed check raises, so the script exits non-zero. It prints a JSON
 line with one entry per kernel and path (launches per frame or grad step of
@@ -213,6 +218,19 @@ W_BAND, H_BAND = 1408, 1536      # 8x64 tiles: 4,224 tiles, three bands
 # weight exp(-8) = 3.4e-4 times the record's alpha: that is the tolerance.
 EDGE_TOL = 4e-4
 TIMED_FRAMES_NEW = 5
+# Odd shapes of the row pack (q): (R, n, pad_to, the rows' storage offset
+# in words, dtype). n % 4 != 0 and pad_to % 4 != 0 put the word-by-word edge
+# of a vector and rows off 16 bytes (every other packed row at pad_to % 4 ==
+# 2) on the card; an offset puts every row on the scalar path.
+PACK_ODD_SHAPES = (
+    (1, 1_000_003, 1_000_005, 0, "float32"),
+    (16, 262_145, 262_148, 1, "int32"),
+    (3, 99_999, 100_002, 2, "float32"),
+    (10, 65_536, 65_536, 3, "int32"),
+    (16, 0, 1_024, 0, "float32"),
+    (7, 5_000, 5_000, 0, "int32"),
+    (10, 40_961, 49_152, 0, "float32"),
+)
 
 
 class SmokeFailure(AssertionError):
@@ -239,6 +257,18 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def turns_ms(fns, reps, rounds=3):
+    """Median milliseconds a call of each of `fns` (name -> callable), timed
+    with cuda_ms in `rounds` turns whose order alternates, so that no
+    version is always timed first."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for r in range(rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            times[name].append(cuda_ms(fns[name], reps))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def _clone(a):
@@ -1888,13 +1918,62 @@ def phase_seam(img, tile_h, seam_tile_rows):
     return seam, other
 
 
+def _bits(x):
+    """A 4-byte tensor's words as int32, for comparisons bit for bit."""
+    import torch
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _pack_odd_shapes(dev, e_pack, e_unpack):
+    """(q): K5's general form and K14 at PACK_ODD_SHAPES, bit-equal to their
+    plain versions and to their earlier form."""
+    import torch
+    from fourdgs_torch.ops import pack_cuda as PK
+    from fourdgs_torch.tools import pack_split as PS
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for r, n, pad_to, offset, dtype in PACK_ODD_SHAPES:
+        def words(size):
+            if dtype == "int32":
+                w = torch.randint(-2 ** 31, 2 ** 31 - 1, (size + offset,),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32)
+            else:
+                w = torch.randn(size + offset, generator=gen, device=dev)
+            return w[offset:]
+        rows = [words(n) for _ in range(r)]
+        cot = words(r * pad_to).view(r, pad_to)
+        what = f"(q) R {r}, n {n:,}, pad_to {pad_to:,}, offset {offset}, {dtype}"
+        got = PK.pack_rows(rows, pad_to)
+        want = PK.pack_rows_plain(rows, pad_to)
+        earlier = PS.earlier_pack_rows(e_pack, rows, pad_to)
+        back = PK.unpack_rows(cot, n)
+        back_plain = PK.unpack_rows_plain(cot, n)
+        back_earlier = PS.earlier_unpack_rows(e_unpack, cot, n)
+        torch.cuda.synchronize()
+        check(torch.equal(_bits(got), _bits(want)),
+              f"{what}: K5 pack_rows differs from plain")
+        check(torch.equal(_bits(got), _bits(earlier)),
+              f"{what}: K5 pack_rows differs from its earlier form")
+        check(all(torch.equal(_bits(g), _bits(w)) and torch.equal(
+            _bits(g), _bits(e)) for g, w, e in zip(back, back_plain,
+                                                   back_earlier)),
+              f"{what}: K14 unpack_rows differs from plain or its earlier "
+              f"form")
+    print(f"(q) pack_rows and unpack_rows at {len(PACK_ODD_SHAPES)} odd "
+          f"shapes (R 1-16, n = 0, n % 4 != 0, n = pad_to, pad_to % 4 != 0, "
+          f"pad_to % 1024 == 0, views 1-3 words off, int32 and float32): "
+          f"bit-equal to plain and to the earlier form")
+
+
 def phase_pack_rows(dev, kernels):
     """(q): pack_rows of ten float32 rows of the converged scene's length
     against torch.stack, and its backward (K14) against the cotangent's
-    rows. Returns (results, launches)."""
+    rows; both bit-equal to their earlier form there and at the odd shapes,
+    and timed beside it. Returns (results, launches)."""
     import torch
     from fourdgs_torch.ops import pack_cuda as PK
     from fourdgs_torch.scenes.cube import CONVERGED_PAD
+    from fourdgs_torch.tools import pack_split as PS
 
     n = -(-N_FULL // CONVERGED_PAD) * CONVERGED_PAD
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1914,34 +1993,54 @@ def phase_pack_rows(dev, kernels):
           "(q) pack_rows differs from torch.stack")
     check(all(torch.equal(r.grad, cot[i]) for i, r in enumerate(rows)),
           "(q) a row's gradient differs from its row of the cotangent")
+    e_pack, e_unpack = PS.scalar_kernels()
+    earlier = PS.earlier_pack_rows(e_pack, detached, n)
+    torch.cuda.synchronize()
+    check(torch.equal(_bits(out.detach()), _bits(earlier)),
+          "(q) pack_rows differs from its earlier form")
     # A padded call, against the plain version.
     short = [r[:n - 1000] for r in detached[:3]]
     check(torch.equal(PK.pack_rows(short, n), PK.pack_rows_plain(short, n)),
           "(q) padded pack_rows differs from plain")
+    _pack_odd_shapes(dev, e_pack, e_unpack)
     results = {}
-    ms = cuda_ms(lambda: PK.pack_rows(detached, n), 20)
+    ms, earlier_ms, lib_ms = turns_ms({
+        "kernel": lambda: PK.pack_rows(detached, n),
+        "earlier": lambda: PS.earlier_pack_rows(e_pack, detached, n),
+        "library": lambda: torch.stack(detached)}, 50).values()
     plain_ms = cuda_ms(lambda: PK.pack_rows_plain(detached, n), 5)
-    lib_ms = cuda_ms(lambda: torch.stack(detached), 20)
     label = f"10 x {n:,} float32"
-    results["K5 pack_rows"] = _sites([site(
-        label, 0.0, ms, plain_ms, 2 * nbytes(cot), 0, lib_ms)])
-    line = (f"(q) pack_rows {label}: forward exact against torch.stack; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.stack "
-            f"{lib_ms:.4f} ms")
+    k5 = results["K5 pack_rows"] = _sites([dict(site(
+        label, 0.0, ms, plain_ms, 2 * nbytes(cot), 0, lib_ms),
+        earlier_ms=earlier_ms)])
+    k5["earlier_ms"] = earlier_ms
+    line = (f"(q) pack_rows {label}: forward exact against torch.stack and "
+            f"bit-equal to the earlier form; kernel {ms:.4f} ms (earlier "
+            f"form {earlier_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"torch.stack {lib_ms:.4f} ms")
     got = PK.unpack_rows(cot, n)
     want = PK.unpack_rows_plain(cot, n)
+    back_earlier = PS.earlier_unpack_rows(e_unpack, cot, n)
     torch.cuda.synchronize()
     check(all(torch.equal(g, w) for g, w in zip(got, want)),
           "(q) K14 unpack_rows differs from plain")
-    ms = cuda_ms(lambda: PK.unpack_rows(cot, n), 20)
+    check(all(torch.equal(_bits(g), _bits(e))
+              for g, e in zip(got, back_earlier)),
+          "(q) K14 unpack_rows differs from its earlier form")
+    ms, earlier_ms, lib_ms = turns_ms({
+        "kernel": lambda: PK.unpack_rows(cot, n),
+        "earlier": lambda: PS.earlier_unpack_rows(e_unpack, cot, n),
+        "library": lambda: cot[:, :n].clone()}, 50).values()
     # The plain version returns views; its copy is what moves the bytes.
     plain_ms = cuda_ms(lambda: [w.clone() for w in
                                 PK.unpack_rows_plain(cot, n)], 5)
-    lib_ms = cuda_ms(lambda: cot[:, :n].clone(), 20)
-    results["K14 unpack_rows"] = _sites([site(
-        label, 0.0, ms, plain_ms, 2 * nbytes(cot), 0, lib_ms)])
+    k14 = results["K14 unpack_rows"] = _sites([dict(site(
+        label, 0.0, ms, plain_ms, 2 * nbytes(cot), 0, lib_ms),
+        earlier_ms=earlier_ms)])
+    k14["earlier_ms"] = earlier_ms
     print(f"{line}; backward launches K14 once, gradients equal the "
-          f"cotangent's rows; K14 {ms:.4f} ms, plain (a copy of each row "
+          f"cotangent's rows, bit-equal to the earlier form; K14 {ms:.4f} ms "
+          f"(earlier form {earlier_ms:.4f} ms), plain (a copy of each row "
           f"view) {plain_ms:.4f} ms, one copy of the (10, n) cotangent "
           f"{lib_ms:.4f} ms")
     return results, launches

@@ -26,19 +26,26 @@
 // K14 `fourdgs_unpack_rows` replaces pack_pallas.py `_unpack_kernel` (the
 // VJP of `pack_rows`, called through `_pack_core_bwd`, pack_pallas.py:75-93):
 // row i of the (R, pad_to) cotangent, first n entries, becomes the i-th
-// row's cotangent. One launch for all R rows rather than R one-row copies:
-// a column's thread reads the R words a stride of pad_to apart and writes
-// one word to each of the R outputs, so every row is read and written
-// coalesced and the launch cost is paid once.
+// row's cotangent, all R rows in one launch.
+//
+// K5's general form and K14 are one row copy in opposite directions
+// (row_copy.cuh): R separate arrays to the matrix's rows, or back. Each
+// block moves one span of one row with 16-byte loads and stores, a thread's
+// loads all issued before its first store; a row whose bases are not both
+// 16-byte aligned, and the words past the last full vector, move word by
+// word in the same kernel. Their earlier form, one thread per column, is
+// kept in fourdgs_torch/tools/csrc/pack_rows_scalar.cu.
 //
 // Bound on the H100: memory bandwidth; each reads and writes every word
-// once (K4 ~0.8 GB at the 10M-splat frame, K5 ~0.5 GB, K14 0.8 GB for ten
-// rows of 10M words). Design: one thread per column, each row read and
-// written coalesced. Built with -fmad=false
-// like K1 (there is nothing to contract here; the flag keeps every kernel of
-// the tail's operands rounding alike).
+// once (K4 ~0.8 GB at the 10M-splat frame, K5 ~0.5 GB, its general form
+// and K14 0.8 GB for ten rows of 10M words). K4 and K5's meta form: one
+// thread per column, each row read and written coalesced. Built with
+// -fmad=false like K1 (there is nothing to contract here; the flag keeps
+// every kernel of the tail's operands rounding alike).
 
 #include <cuda_runtime.h>
+
+#include "row_copy.cuh"
 
 namespace {
 
@@ -96,40 +103,25 @@ pack_meta_rows_kernel(const unsigned char* __restrict__ alive,
   out[5 * p + i] = span;
 }
 
-constexpr int kMaxRows = 16;
-
-struct WordRows {
-  int* rows[kMaxRows];
-};
-
-__global__ void __launch_bounds__(kThreads)
-pack_rows_kernel(WordRows in, int r, int* __restrict__ out, int n,
-                 int pad_to) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= pad_to) return;
-  const bool valid = i < n;
-  // Unrolled over the most rows, so that every pointer is read from the
-  // kernel's parameters by a constant index (no local copy of the table).
-#pragma unroll
-  for (int f = 0; f < kMaxRows; ++f) {
-    if (f < r) {
-      out[static_cast<long long>(f) * pad_to + i] = valid ? in.rows[f][i] : 0;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-unpack_rows_kernel(const int* __restrict__ d_out, int r, int n, int pad_to,
-                   WordRows out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-#pragma unroll
-  for (int f = 0; f < kMaxRows; ++f) {
-    if (f < r) out.rows[f][i] = d_out[static_cast<long long>(f) * pad_to + i];
-  }
-}
-
 int blocks_for(int pad_to) { return (pad_to + kThreads - 1) / kThreads; }
+
+constexpr int kMaxRows = row_copy::kMaxRows;
+// The row copy's launch: 256 threads, two 16-byte vectors a thread a span
+// (8 KB a block, 28 registers: eight blocks and 64 KB in flight an SM),
+// streaming hints, the rows one after the other. On the H100 four or eight
+// vectors a thread (80-128 KB in flight an SM) ran 0.3-4% slower, the rows
+// interleaved 2-5%, persistent blocks and the bulk asynchronous copy
+// through shared memory 5-7% (tools/pack_split.py,
+// tools/csrc/pack_rows_trials.cu).
+constexpr int kCopyThreads = 256;
+constexpr int kCopyVec = 2;
+constexpr bool kCopyStream = true;
+
+int copy_rows(const row_copy::Rows& rows, int r, int valid, int len,
+              void* stream) {
+  return row_copy::launch_copy_rows<kCopyThreads, kCopyVec, kCopyStream>(
+      rows, r, valid, len, static_cast<cudaStream_t>(stream));
+}
 
 }  // namespace
 
@@ -181,14 +173,12 @@ extern "C" int fourdgs_pack_rows(
   }
   const void* rows[kMaxRows] = {r0, r1, r2,  r3,  r4,  r5,  r6,  r7,
                                 r8, r9, r10, r11, r12, r13, r14, r15};
-  WordRows in;
-  for (int f = 0; f < kMaxRows; ++f) {
-    in.rows[f] = static_cast<int*>(const_cast<void*>(rows[f]));
+  row_copy::Rows copy = {};
+  for (int f = 0; f < r; ++f) {
+    copy.src[f] = static_cast<const int*>(rows[f]);
+    copy.dst[f] = static_cast<int*>(out) + static_cast<long long>(f) * pad_to;
   }
-  pack_rows_kernel<<<blocks_for(pad_to), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      in, r, static_cast<int*>(out), n, pad_to);
-  return static_cast<int>(cudaGetLastError());
+  return copy_rows(copy, r, n, pad_to, stream);
 }
 
 // d_out: (r, pad_to) words; outputs: r <= 16 pointers to (n,) arrays.
@@ -203,10 +193,11 @@ extern "C" int fourdgs_unpack_rows(
   if (n == 0) return 0;
   void* rows[kMaxRows] = {o0, o1, o2,  o3,  o4,  o5,  o6,  o7,
                           o8, o9, o10, o11, o12, o13, o14, o15};
-  WordRows out;
-  for (int f = 0; f < kMaxRows; ++f) out.rows[f] = static_cast<int*>(rows[f]);
-  unpack_rows_kernel<<<blocks_for(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(d_out), r, n, pad_to, out);
-  return static_cast<int>(cudaGetLastError());
+  row_copy::Rows copy = {};
+  for (int f = 0; f < r; ++f) {
+    copy.src[f] = static_cast<const int*>(d_out)
+                  + static_cast<long long>(f) * pad_to;
+    copy.dst[f] = static_cast<int*>(rows[f]);
+  }
+  return copy_rows(copy, r, n, n, stream);
 }

@@ -7,7 +7,9 @@ Kernels K4, K5 (its meta form and its general form) and K14
 plain version; a CUDA tensor launches the kernel. The record pack is
 differentiable; its backward is plain PyTorch, as the reference's is plain
 XLA. The meta pack holds integers and has none. `pack_rows` is
-differentiable for float rows; its backward is K14.
+differentiable for float rows; its backward is K14. K5's general form and
+K14 share one row copy (`csrc/row_copy.cuh`), written out for the CPU tests
+by `row_copy_plan`, `pack_rows_walk` and `unpack_rows_walk`.
 """
 
 from __future__ import annotations
@@ -23,6 +25,10 @@ from fourdgs_torch.ops._build import CudaKernel
 N_META = 6       # tx0, tx1, ty0, ty1, dbits, span
 N_RECORD = 10    # sx, sy, v0x, v0y, il0, il1, r, g, b, a_eff
 MAX_ROWS = 16    # rows one pack_rows call stacks
+# The row copy of K5's general form and K14 (csrc/pack.cu, row_copy.cuh):
+# threads a block, 16-byte vectors a thread a span; how a word is moved.
+COPY_THREADS, COPY_VEC = 256, 2
+VECTOR, VECTOR_EDGE, SCALAR = 0, 1, 2
 _FLAGS = ("-fmad=false",)
 
 PACK_RECORD_FIELDS = CudaKernel(
@@ -178,6 +184,76 @@ def pack_rows_plain(rows: Sequence[torch.Tensor], pad_to: int) -> torch.Tensor:
 def unpack_rows_plain(d_out: torch.Tensor, n: int):
     """The VJP of pack_rows: row i of the cotangent, first n entries."""
     return tuple(d_out[:, :n].unbind(0))
+
+
+def row_copy_plan(valid: int, length: int, aligned: bool,
+                  threads: int = COPY_THREADS, vec: int = COPY_VEC):
+    """The partition of one row by the row copy of K5's general form and
+    K14 (`csrc/row_copy.cuh`), written out in plain PyTorch: every word the
+    row's blocks write, with the block (its span, blockIdx.x) and thread
+    that write it, the word it is read from (-1: the kernel writes 0) and
+    how: VECTOR (16-byte load and store), VECTOR_EDGE (the vector that holds
+    word `valid` or `length`: word loads, or word stores, or both) or SCALAR
+    (a row whose bases are not both 16-byte aligned). A dict of (words,)
+    int64 tensors, in the kernel's order (span, slot, thread, word)."""
+    span_words = 4 * vec * threads
+    spans = -(-length // span_words)
+    s = torch.arange(spans)[:, None, None, None]
+    t = torch.arange(threads)[None, None, :, None]
+    if aligned:
+        v = torch.arange(vec)[None, :, None, None]
+        first = s * span_words + 4 * (v * threads + t)   # a vector's word 0
+        dst = first + torch.arange(4)
+        full = (first + 4 <= length) & ((first + 4 <= valid)
+                                        | (first >= valid))
+        path = torch.where(full, VECTOR, VECTOR_EDGE).expand(dst.shape)
+    else:
+        i = torch.arange(4 * vec)[None, :, None, None]
+        dst = s * span_words + i * threads + t
+        path = torch.full(dst.shape, SCALAR)
+    shape = dst.shape
+    written = dst < length
+    plan = dict(dst=dst, src=torch.where(dst < valid, dst, -1),
+                span=s.expand(shape), thread=t.expand(shape), path=path)
+    return {k: x[written] for k, x in plan.items()}
+
+
+def _row_copy_walk(src_rows, dst_rows, valid: int, length: int,
+                   threads: int, vec: int):
+    """Run the row copy's partition (row_copy_plan) on R (src, dst) 1-D
+    tensor pairs, each row aligned or not as the kernel finds its two
+    bases; returns how many times each dst word was written."""
+    counts = []
+    for src, dst in zip(src_rows, dst_rows):
+        aligned = (src.data_ptr() | dst.data_ptr()) % 16 == 0
+        plan = row_copy_plan(valid, length, aligned, threads, vec)
+        read = plan["src"]
+        word = torch.zeros(read.shape, dtype=dst.dtype)
+        word[read >= 0] = src[read[read >= 0]]
+        dst[plan["dst"]] = word
+        counts.append(torch.bincount(plan["dst"], minlength=length))
+    return torch.stack(counts)
+
+
+def pack_rows_walk(rows: Sequence[torch.Tensor], pad_to: int,
+                   threads: int = COPY_THREADS, vec: int = COPY_VEC):
+    """K5's general form as its blocks run it (row_copy_plan), in plain
+    PyTorch: the (R, pad_to) matrix and the number of writes of each of its
+    words. Row f is written at word f * pad_to of the matrix."""
+    n = rows[0].shape[0]
+    out = torch.full((len(rows), pad_to), -1, dtype=rows[0].dtype)
+    writes = _row_copy_walk(rows, list(out), n, pad_to, threads, vec)
+    return out, writes
+
+
+def unpack_rows_walk(d_out: torch.Tensor, n: int,
+                     threads: int = COPY_THREADS, vec: int = COPY_VEC):
+    """K14 as its blocks run it (row_copy_plan), in plain PyTorch: the R
+    (n,) row cotangents and the number of writes of each of their words."""
+    outs = [torch.full((n,), -1, dtype=d_out.dtype)
+            for _ in range(d_out.shape[0])]
+    writes = _row_copy_walk(list(d_out), outs, n, n, threads, vec)
+    return tuple(outs), writes
 
 
 def unpack_rows(d_out: torch.Tensor, n: int):

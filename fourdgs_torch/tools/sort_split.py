@@ -315,25 +315,28 @@ def net_ms(fn, key, val, reps=REPS):
     return max(0.0, run - cuda_ms(lambda: (key.clone(), val.clone()), reps))
 
 
-def ptxas_report(sources):
+def ptxas_report(sources, flags=()):
     """Registers, spill bytes and shared memory of every kernel of the
-    given `.cu` files (nvcc -Xptxas -v)."""
+    given `.cu` files built with the extra nvcc `flags` (nvcc -Xptxas
+    -v)."""
     import os
     import re
 
     from fourdgs_torch.ops import _build as B
     report = []
+    base = [f for f in B.NVCC_FLAGS if f != "-shared"]
     for src in sources:
-        flags = [f for f in B.NVCC_FLAGS if f != "-shared"]
         proc = subprocess.run(
-            [B._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", os.devnull,
-             str(src)], capture_output=True, text=True, timeout=600,
-            check=True)
+            [B._nvcc(), *base, *flags, "-Xptxas", "-v", "-c", "-o",
+             os.devnull, str(src)], capture_output=True, text=True,
+            timeout=600, check=True)
         entry = None
         for line in proc.stderr.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 entry = dict(source=Path(src).name, kernel=m.group(1))
+                if flags:
+                    entry["flags"] = list(flags)
                 report.append(entry)
             elif entry is not None and "spill stores" in line:
                 st, ld = re.findall(r"(\d+) bytes spill", line)
