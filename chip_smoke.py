@@ -41,7 +41,16 @@ on the same card at each of those call sites. Phases:
       sample and the band-cut sample), K2, K1 pass 1, K4, K5, K6 (main and
       big-tier stream, and the main meta at a 1024-wide chunk, where the
       bands and slot masks are not trivial) and K7 (main and big-tier
-      stream), each with the kernel and plain times; then K7 and K9 where
+      stream), each with the kernel and plain times; K3 and K6 (here, in
+      (b) and in (p)) also bit-equal to their earlier forms
+      (`fourdgs_torch/tools/csrc/sample_blocks_word.cu`,
+      `tail_prepass_block_chunk.cu`) and timed beside them in turns, K3
+      also alone (launches replayed from a CUDA graph) and alone with the
+      L2 flushed before each launch, beside an empty kernel launched the
+      same ways; K6 at PREPASS_ODD_SHAPES (chunks 50-16384, budget_lo > 0,
+      an all-dead chunk, chunk 100 at Np = 200, metas 1-3 words off 16
+      bytes) and on the C-R8 wrap, K3 on views 1-3
+      words off, both bit-equal to plain and the earlier form; then K7 and K9 where
       the frame's own sites do not reach: the main stream under 32 and 64
       samples a tile (tail blocks 8x8 and 4x8: the kernels' second unrolled
       instance and their run-time loops) and the big-tier stream re-chunked
@@ -344,17 +353,30 @@ def site(label, err, ms, plain_ms, moved, ops, library_ms=None):
                 library_ms=library_ms)
 
 
+# Times a site may carry beside `ms`, summed over a path's sites where every
+# site has them: the earlier form's time (a redesigned kernel), and for K3 and
+# K6 the kernel alone (`device_ms`, launches replayed from a CUDA graph), for
+# K3 also alone with the L2 flushed before each launch (`cold_ms`), each also
+# for the earlier form.
+EXTRA_MS = ("earlier_ms", "device_ms", "cold_ms", "earlier_device_ms",
+            "earlier_cold_ms")
+
+
 def _sites(sites):
     """One kernel's result over its call sites in a path: times and bounds
     summed (one launch per site), the largest error, the limit of the site
     with the largest bound; a library time only if every site has one."""
     lib = [s["library_ms"] for s in sites]
-    return dict(max_abs_err=max(s["max_abs_err"] for s in sites),
-                ms=sum(s["ms"] for s in sites),
-                plain_ms=sum(s["plain_ms"] for s in sites),
-                bound_ms=sum(s["bound_ms"] for s in sites),
-                bound_by=max(sites, key=lambda s: s["bound_ms"])["bound_by"],
-                library_ms=None if None in lib else sum(lib), calls=sites)
+    res = dict(max_abs_err=max(s["max_abs_err"] for s in sites),
+               ms=sum(s["ms"] for s in sites),
+               plain_ms=sum(s["plain_ms"] for s in sites),
+               bound_ms=sum(s["bound_ms"] for s in sites),
+               bound_by=max(sites, key=lambda s: s["bound_ms"])["bound_by"],
+               library_ms=None if None in lib else sum(lib), calls=sites)
+    for key in EXTRA_MS:
+        if all(key in s for s in sites):
+            res[key] = sum(s[key] for s in sites)
+    return res
 
 
 def merge_results(parts):
@@ -368,31 +390,97 @@ def merge_results(parts):
 
 
 def phase_sample_blocks(tag, calls, n_sites):
-    """K3 at each of the path's `n_sites` call sites, in call order."""
+    """K3 at each of the path's `n_sites` call sites, in call order: bit-equal
+    to plain and to its earlier form (`tools/csrc/sample_blocks_word.cu`),
+    timed beside it through the wrapper (back to back, in turns), alone
+    (launches replayed from a CUDA graph) and alone with the L2 flushed
+    before each launch, beside an empty kernel launched the same ways."""
     import torch
     from fourdgs_torch.ops import lookup_cuda as L
+    from fourdgs_torch.tools import prepass_split as PS
     check(len(calls) == n_sites, f"{tag} K3: {len(calls)} calls in one "
           f"frame, want {n_sites}")
+    word, _, empty = PS.word_kernels()
+    flush = torch.empty(PS.FLUSH_BYTES // 4, dtype=torch.int32,
+                        device=calls[0][0][0][0].device)
+    def stream():      # at launch: a graph captures on a stream of its own
+        return torch.cuda.current_stream().cuda_stream
+    floor_device = PS.graph_ms(lambda: empty(1, 32, 1, stream=stream()))
+    floor_cold = PS.cold_ms(lambda: empty(1, 32, 1, stream=stream()), flush)
     sites, lines = [], []
     for (arrs,), kw in calls:
         key = arrs[0]
         stride, take = kw["stride_rows"], kw["take_rows"]
         got, = L.sample_blocks([key], stride_rows=stride, take_rows=take)
         want = L.sample_blocks_plain(key, stride, take)
+        earlier = PS.earlier_sample_blocks(word, key, stride, take)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"{tag} K3 sample_blocks (stride "
               f"{stride}, take {take}) differs from plain")
-        ms = cuda_ms(lambda: L.sample_blocks([key], stride, take), reps=50)
+        check(torch.equal(got, earlier), f"{tag} K3 sample_blocks (stride "
+              f"{stride}, take {take}) differs from its earlier form")
+        ms, earlier_ms = turns_ms({
+            "kernel": lambda: L.sample_blocks([key], stride, take),
+            "earlier": lambda: PS.earlier_sample_blocks(word, key, stride,
+                                                        take)}, 50).values()
         plain_ms = cuda_ms(lambda: L.sample_blocks_plain(key, stride, take),
                            reps=50)
+        # The kernels alone, on a preallocated output.
+        nblocks = L.num_sample_blocks(key.shape[0], stride)
+        out = torch.empty_like(want)
+        alone = {
+            "": lambda: L.SAMPLE_BLOCKS(key, out, nblocks, stride, take,
+                                        stream=stream()),
+            "earlier_": lambda: PS.earlier_sample_blocks(word, key, stride,
+                                                         take, out)}
+        extra = dict(earlier_ms=earlier_ms)
+        for pre, fn in alone.items():
+            extra[f"{pre}device_ms"] = PS.graph_ms(fn)
+            extra[f"{pre}cold_ms"] = PS.cold_ms(fn, flush)
         label = (f"{key.shape[0]:,} int32 keys, stride {stride}, take "
                  f"{take} -> {got.shape[0]:,} samples")
         # The function reads only the sampled words.
-        sites.append(site(label, 0.0, ms, plain_ms, 2 * nbytes(got), 0))
-        lines.append(f"{label}: exact match; kernel {ms:.4f} ms, plain "
-                     f"{plain_ms:.4f} ms")
-    print(f"{tag} K3 sample_blocks: " + "; ".join(lines))
+        sites.append(dict(site(label, 0.0, ms, plain_ms, 2 * nbytes(got), 0),
+                          **extra, empty_device_ms=floor_device,
+                          empty_cold_ms=floor_cold))
+        lines.append(
+            f"{label}: exact match, bit-equal to the earlier form; through "
+            f"the wrapper {ms:.4f} ms (earlier form {earlier_ms:.4f}), the "
+            f"kernel alone {extra['device_ms']:.4f} ms (earlier "
+            f"{extra['earlier_device_ms']:.4f}), alone with the L2 flushed "
+            f"{extra['cold_ms']:.4f} ms (earlier "
+            f"{extra['earlier_cold_ms']:.4f}); plain {plain_ms:.4f} ms")
+    del flush
+    print(f"{tag} K3 sample_blocks: " + "; ".join(lines) + f"; an empty "
+          f"kernel alone {floor_device:.4f} ms, after a flush "
+          f"{floor_cold:.4f} ms")
     return _sites(sites)
+
+
+def phase_sample_offsets(dev):
+    """(g): K3 on views 1-3 words off 16 bytes (the scalar path) and at an
+    aligned base, bit-equal to plain and to its earlier form."""
+    import torch
+    from fourdgs_torch.ops import lookup_cuda as L
+    from fourdgs_torch.tools import prepass_split as PS
+    word = PS.word_kernels()[0]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    shapes = ((1 << 22, 134, 2, 1), (1 << 22, 64, 1, 2), (1 << 20, 7, 8, 3),
+              (1024, 1, 8, 1), (1 << 20, 9, 3, 0))
+    for n, stride, take, offset in shapes:
+        buf = torch.randint(-2 ** 31, 2 ** 31 - 1, (n + offset,),
+                            generator=gen, device=dev, dtype=torch.int32)
+        x = buf[offset:]
+        got, = L.sample_blocks([x], stride, take)
+        want = L.sample_blocks_plain(x, stride, take)
+        earlier = PS.earlier_sample_blocks(word, x, stride, take)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want) and torch.equal(got, earlier),
+              f"(g) K3 at n {n:,}, stride {stride}, take {take}, offset "
+              f"{offset}: differs from plain or its earlier form")
+    print(f"(g) K3 sample_blocks at {len(shapes)} odd shapes (views 1-3 "
+          f"words off 16 bytes, take 1-8, one sample block): bit-equal to "
+          f"plain and to the earlier form")
 
 
 def _k2_exact(tag, key, val, keep, row_len, cut, shift):
@@ -959,7 +1047,11 @@ def phase_converged_kernels(captured, tag="(g)"):
 
     # K6: the main and the big-tier stream, then the main meta at a chunk
     # of 1024 (two sub-blocks, no int32 wrap of the depth sum), where the
-    # bands and the slot masks must come out non-trivial.
+    # bands and the slot masks must come out non-trivial; bit-equal to
+    # plain and to the earlier form (one block a chunk,
+    # `tools/csrc/tail_prepass_block_chunk.cu`), timed beside it.
+    from fourdgs_torch.tools import prepass_split as PS
+    earlier_k6 = PS.block_chunk_kernel()
     calls = captured["tail_cuda.tail_prepass"]
     check(len(calls) == 2,
           f"{tag} K6: {len(calls)} calls in one frame, want 2")
@@ -976,11 +1068,17 @@ def phase_converged_kernels(captured, tag="(g)"):
                                              budget)
             return band, rect, TL.step_slot_masks(meta, chunk, budget,
                                                   budget_lo)
-        got, want = TL.tail_prepass(*args, **kw), k6_plain()
+        def k6_earlier():
+            return PS.earlier_tail_prepass(earlier_k6, *args, **kw)
+        got, want, earlier = (TL.tail_prepass(*args, **kw), k6_plain(),
+                              k6_earlier())
         torch.cuda.synchronize()
-        for g, w, what in zip(got, want, ("band", "rect", "slot mask")):
+        for g, w, e, what in zip(got, want, earlier,
+                                 ("band", "rect", "slot mask")):
             check(torch.equal(g, w), f"{tag} K6 {label}: {what} differs from "
                   f"plain")
+            check(torch.equal(g, e), f"{tag} K6 {label}: {what} differs from "
+                  f"the earlier form")
         band, rect, mask = got
         bands = torch.bincount(band, minlength=kw["k_bands"]).tolist()
         n_mask = int((mask != 0).sum())
@@ -988,17 +1086,36 @@ def phase_converged_kernels(captured, tag="(g)"):
             check(sum(b > 0 for b in bands) > 1 and n_mask > 0,
                   f"{tag} K6 {label}: trivial output, chunks per band {bands}, "
                   f"{n_mask} non-zero slot masks")
-        ms = cuda_ms(lambda: TL.tail_prepass(*args, **kw), 20)
+        ms, earlier_ms = turns_ms({
+            "kernel": lambda: TL.tail_prepass(*args, **kw),
+            "earlier": k6_earlier}, 20).values()
         plain_ms = cuda_ms(k6_plain, 5)
+        # Both kernels alone, from a CUDA graph: the device's time.
+        steps, k_bands = meta.shape[1] // chunk, kw["k_bands"]
+        rows = torch.empty((steps, 6), dtype=torch.int32, device=meta.device)
+        cuts32 = cuts.to(torch.int32).contiguous()
+        device_ms = PS.graph_ms(lambda: TL.TAIL_PREPASS(
+            meta, cuts32, rows, meta.shape[1], chunk, budget, budget_lo,
+            k_bands - 1, steps,
+            stream=torch.cuda.current_stream().cuda_stream), reps=20)
+        earlier_device_ms = PS.graph_ms(lambda: PS.earlier_tail_prepass(
+            earlier_k6, meta, cuts32, chunk, budget, budget_lo, k_bands, rows),
+            reps=20)
         where = (f"{label}: {meta.shape[1] // chunk:,} chunks of {chunk}, "
                  f"budget ({budget_lo}, {budget}]")
         if not label.startswith("main at"):
-            sites.append(site(where, 0.0, ms, plain_ms,
-                              nbytes(meta, cuts, *got), 0))
-        lines.append(f"{where}: exact, chunks per band {bands}, {n_mask:,} "
-                     f"non-zero slot masks, window passes per chunk max "
+            sites.append(dict(site(where, 0.0, ms, plain_ms,
+                                   PS.prepass_bytes(meta, budget_lo, budget)
+                                   + nbytes(cuts, *got), 0),
+                              earlier_ms=earlier_ms, device_ms=device_ms,
+                              earlier_device_ms=earlier_device_ms))
+        lines.append(f"{where}: exact, bit-equal to the earlier form, chunks "
+                     f"per band {bands}, {n_mask:,} non-zero slot masks, "
+                     f"window passes per chunk max "
                      f"{int((rect[:, 2] * rect[:, 3]).max())}; kernel "
-                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+                     f"{ms:.4f} ms (earlier form {earlier_ms:.4f}), alone "
+                     f"{device_ms:.4f} ms (earlier {earlier_device_ms:.4f}), "
+                     f"plain {plain_ms:.4f} ms")
     results["K6 tail_prepass"] = _sites(sites)
     print(f"{tag} K6 tail_prepass: " + "; ".join(lines))
 
@@ -1049,6 +1166,82 @@ def phase_converged_kernels(captured, tag="(g)"):
     print(f"{tag} K7 tail_accumulate (tolerance {K7_RTOL:g} rel + {K7_ATOL:g}): "
           + "; ".join(lines))
     return results
+
+
+# Odd shapes of the tail prepass (g): (chunk, chunks, budget, budget_lo, the
+# meta's storage offset in words, what the shape puts on the card). Chunk
+# 100 (Np = 200) is 16-byte aligned, chunk 50 is not and takes the scalar
+# path, as does every meta at an offset of 1-3 words.
+PREPASS_ODD_SHAPES = (
+    (128, 300, 4, 0, 0, "chunk 128"),
+    (256, 200, 16, 4, 0, "chunk 256, budget_lo 4"),
+    (512, 100, 9, 3, 0, "chunk 512, budget_lo 3"),
+    (1024, 60, 4, 0, 0, "chunk 1024"),
+    (4096, 20, 9, 2, 0, "chunk 4096, masks set"),
+    (100, 2, 4, 0, 0, "Np = 200, chunk 100"),
+    (50, 3, 4, 0, 0, "chunk 50, off 16 bytes"),
+    (16384, 20, 4, 0, 1, "chunk 16384, meta 1 word off"),
+    (512, 40, 16, 4, 3, "chunk 512, meta 3 words off"),
+    (2048, 30, 4, 0, 2, "chunk 2048, meta 2 words off"),
+)
+
+
+def phase_prepass_odd_shapes(dev):
+    """(g): K6 at PREPASS_ODD_SHAPES, each with an all-dead chunk, and on
+    the C-R8 wrap (one chunk of 16384 all live at dbits 250000, which wraps
+    the int32 depth sum), bit-equal to plain and to its earlier form."""
+    import torch
+    from fourdgs_torch.ops import tail_cuda as TL
+    from fourdgs_torch.tools import prepass_split as PS
+    earlier_k6 = PS.block_chunk_kernel()
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def meta_at(chunk, steps, offset):
+        n = chunk * steps
+        buf = torch.empty(6 * n + offset, dtype=torch.int32, device=dev)
+        meta = buf[offset:].view(6, n)
+
+        def ints(lo, hi):
+            return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+        meta[0], meta[2] = ints(0, 120), ints(0, 68)
+        meta[1], meta[3] = meta[0] + ints(0, 3), meta[2] + ints(0, 3)
+        meta[4] = torch.sort(ints(0, 1 << 20)).values
+        meta[5] = ints(1, 12) * (ints(0, 2) == 1)
+        meta[5, chunk:2 * chunk] = 0              # chunk 1: all dead
+        return meta
+    wrap = torch.zeros((6, 16384), dtype=torch.int32, device=dev)
+    wrap[4], wrap[5] = 250000, 1
+    cases = [(meta_at(chunk, steps, off), chunk, budget, lo, what)
+             for chunk, steps, budget, lo, off, what in PREPASS_ODD_SHAPES]
+    cases.append((wrap, 16384, 4, 0, "C-R8: one chunk, the depth sum wraps"))
+    for meta, chunk, budget, lo, what in cases:
+        cuts = torch.quantile(-meta[4].double(), torch.arange(
+            1, 8, device=dev, dtype=torch.float64) / 8).to(torch.int32)
+        if what.startswith("C-R8"):
+            cuts = -torch.tensor([280000, 260000, 240000, 230000, 220000,
+                                  210000, 200000], device=dev,
+                                 dtype=torch.int32)
+        got = TL.tail_prepass(meta, cuts, chunk, budget, lo)
+        band, rect = TL.step_bands_rects(meta, chunk, cuts, lo, budget)
+        want = (band, rect, TL.step_slot_masks(meta, chunk, budget, lo))
+        earlier = PS.earlier_tail_prepass(earlier_k6, meta, cuts, chunk,
+                                          budget, lo)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"(g) K6 {what}: differs from plain")
+        check(all(torch.equal(g, e) for g, e in zip(got, earlier)),
+              f"(g) K6 {what}: differs from its earlier form")
+        if what.startswith("C-R8"):
+            check(int(got[0][0]) == 7, "(g) K6 C-R8: band is not the "
+                  "reference's 7")
+        else:
+            check(got[1][1].tolist() == [0, 0, 1, 1],
+                  f"(g) K6 {what}: the all-dead chunk's rect is not empty")
+    print(f"(g) K6 tail_prepass at {len(cases)} odd shapes (chunks 50-16384, "
+          f"budget_lo > 0, an all-dead chunk each, chunk 100 at Np = 200, "
+          f"chunk 50 and metas 1-3 words off on the scalar path, the C-R8 "
+          f"wrap): bit-equal to plain and to the earlier form")
 
 
 def phase_tail_variants(tag, captured, camera, cfg):
@@ -2010,10 +2203,9 @@ def phase_pack_rows(dev, kernels):
         "library": lambda: torch.stack(detached)}, 50).values()
     plain_ms = cuda_ms(lambda: PK.pack_rows_plain(detached, n), 5)
     label = f"10 x {n:,} float32"
-    k5 = results["K5 pack_rows"] = _sites([dict(site(
+    results["K5 pack_rows"] = _sites([dict(site(
         label, 0.0, ms, plain_ms, 2 * nbytes(cot), 0, lib_ms),
         earlier_ms=earlier_ms)])
-    k5["earlier_ms"] = earlier_ms
     line = (f"(q) pack_rows {label}: forward exact against torch.stack and "
             f"bit-equal to the earlier form; kernel {ms:.4f} ms (earlier "
             f"form {earlier_ms:.4f} ms), plain {plain_ms:.4f} ms, "
@@ -2034,10 +2226,9 @@ def phase_pack_rows(dev, kernels):
     # The plain version returns views; its copy is what moves the bytes.
     plain_ms = cuda_ms(lambda: [w.clone() for w in
                                 PK.unpack_rows_plain(cot, n)], 5)
-    k14 = results["K14 unpack_rows"] = _sites([dict(site(
+    results["K14 unpack_rows"] = _sites([dict(site(
         label, 0.0, ms, plain_ms, 2 * nbytes(cot), 0, lib_ms),
         earlier_ms=earlier_ms)])
-    k14["earlier_ms"] = earlier_ms
     print(f"{line}; backward launches K14 once, gradients equal the "
           f"cotangent's rows, bit-equal to the earlier form; K14 {ms:.4f} ms "
           f"(earlier form {earlier_ms:.4f} ms), plain (a copy of each row "
@@ -2105,9 +2296,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     t0 = time.time()
-    # With the earlier form of K11 and K13, which (m) holds them to.
+    # With the earlier forms that (g) holds K3 and K6 to and (m) K11 and K13.
+    from fourdgs_torch.tools.prepass_split import (block_chunk_kernel,
+                                                   word_kernels)
     from fourdgs_torch.tools.sort_split import shared_stage_kernels
-    build_kernels(list(kernels.values()) + list(shared_stage_kernels()))
+    build_kernels(list(kernels.values()) + list(shared_stage_kernels())
+                  + [block_chunk_kernel(), *word_kernels()])
     print(f"(a) {kind}, {torch.cuda.device_count()} visible, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built "
           f"in {time.time() - t0:.1f} s")
@@ -2199,6 +2393,8 @@ def main() -> int:
     }
     conv.update(phase_converged_kernels(captured))
     results["converged"] = conv
+    phase_prepass_odd_shapes(dev)
+    phase_sample_offsets(dev)
     phase_tail_variants("(g)", captured, camera, cfg)
     del captured
     torch.cuda.empty_cache()

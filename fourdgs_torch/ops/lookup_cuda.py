@@ -4,7 +4,8 @@ cut (port of fourdgs/ops/lookup_pallas.py `sample_blocks` and
 
 Kernels K3 (`csrc/sample_blocks.cu`) and K10 (`csrc/cutkeys.cu`) plus their
 plain PyTorch versions. A CPU tensor runs the plain version; a CUDA tensor
-launches the kernel.
+launches the kernel. `sample_plan` writes K3's partition (one thread a
+16-byte vector of the output) out in plain PyTorch for the CPU tests.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ from fourdgs_torch.ops.sort_cuda import CUT_TABLE, DEAD
 CUT_SHIFT = 20              # a key's tile id sits above its 20 depth bits
 # Sample blocks start on 8-row granules (the reference's TPU tile height).
 GRANULE_ROWS = 8
+# K3: threads a block, and how a thread moves its vector of the output.
+SAMPLE_THREADS = 256
+SAMPLE_VECTOR, SAMPLE_SCALAR = 0, 1
 
 SAMPLE_BLOCKS = CudaKernel(
     "sample_blocks.cu", "fourdgs_sample_blocks",
@@ -47,6 +51,32 @@ def sample_blocks_plain(x: torch.Tensor, stride_rows: int,
     return x[idx.reshape(-1)]
 
 
+def sample_plan(n: int, stride_rows: int, take_rows: int,
+                base_offset: int = 0):
+    """K3's partition (`csrc/sample_blocks.cu`) of one (n,) array whose
+    first word lies `base_offset` words past a 16-byte boundary, written out
+    in plain PyTorch: every output word with the word of the array it is
+    read from, the thread (one a 16-byte vector of the output, over all
+    sample blocks) and block that move it, and how: SAMPLE_VECTOR (one
+    16-byte load and store) when the base is 16-byte aligned, else
+    SAMPLE_SCALAR (four word loads, then four word stores). A dict of
+    (words,) int64 tensors in the kernel's order (thread, word)."""
+    nblocks = num_sample_blocks(n, stride_rows)
+    per_block = take_rows * 32                     # vectors a sample block
+    thread = torch.arange(nblocks * per_block)
+    g, w = thread // per_block, 4 * (thread % per_block)
+    row = (g * stride_rows // GRANULE_ROWS) * GRANULE_ROWS
+    word = torch.arange(4)
+    src = (row * 128 + w)[:, None] + word
+    dst = (g * per_block * 4 + w)[:, None] + word
+    path = SAMPLE_VECTOR if base_offset % 4 == 0 else SAMPLE_SCALAR
+    thread = thread[:, None].expand(src.shape)
+    return dict(dst=dst.reshape(-1), src=src.reshape(-1),
+                thread=thread.reshape(-1),
+                block=(thread // SAMPLE_THREADS).reshape(-1),
+                path=torch.full((src.numel(),), path))
+
+
 def sample_blocks(arrs: Sequence[torch.Tensor], stride_rows: int,
                   take_rows: int = 2) -> List[torch.Tensor]:
     """Every stride_rows-th 128-word row window of each (N,) int32/float32
@@ -63,19 +93,22 @@ def sample_blocks(arrs: Sequence[torch.Tensor], stride_rows: int,
             raise ValueError(f"want (N,) int32/float32 arrays, got "
                              f"{tuple(a.shape)} {a.dtype}")
     outs = []
+    nblocks = num_sample_blocks(n, stride_rows)
+    stream_dev = stream = None        # taken once for the arrays' card
     for a in arrs:
-        if a.device.type == "cpu":
+        dev = a.device
+        if dev.type == "cpu":
             outs.append(sample_blocks_plain(a, stride_rows, take_rows))
             continue
-        if a.device.type != "cuda":
-            raise ValueError(f"unsupported device {a.device}")
-        a = a.contiguous()
-        nblocks = num_sample_blocks(n, stride_rows)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        if stream is None or dev != stream_dev:
+            stream_dev = dev
+            stream = torch.cuda.current_stream(dev).cuda_stream
         out = torch.empty(nblocks * take_rows * 128, dtype=a.dtype,
-                          device=a.device)
-        SAMPLE_BLOCKS(a, out, nblocks, stride_rows,
-                      take_rows,
-                      stream=torch.cuda.current_stream(a.device).cuda_stream)
+                          device=dev)
+        SAMPLE_BLOCKS(a if a.is_contiguous() else a.contiguous(), out,
+                      nblocks, stride_rows, take_rows, stream=stream)
         outs.append(out)
     return outs
 

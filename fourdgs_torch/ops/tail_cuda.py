@@ -26,7 +26,9 @@ tensor launches the kernel. `tail_accumulate` is an autograd Function that
 differentiates `fields`; the plain versions also take float64 CPU tensors.
 K7 and K9 walk the stream in units of SUB splats (`csrc/tail_unit.cuh`);
 `unit_worklists`, `tail_accumulate_units` and `tail_accumulate_bwd_units`
-write that walk out in plain PyTorch for the CPU tests.
+write that walk out in plain PyTorch for the CPU tests, and `prepass_walk`
+writes out K6's walk of a chunk (one block a chunk, 16-byte loads or a
+scalar path).
 
 The reference's band assignment sums a chunk's depth bits in int32, which
 wraps past 2^31 for chunks with more than about 8,000 live entries (ROADMAP
@@ -64,6 +66,8 @@ _FLAGS = ("-fmad=false",)
 TAIL_PREPASS = CudaKernel(
     "tail_prepass.cu", "fourdgs_tail_prepass",
     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6, extra_flags=_FLAGS)
+# K6: threads a block (one block a chunk).
+PREPASS_THREADS = 256
 TAIL_ACCUMULATE = CudaKernel(
     "tail.cu", "fourdgs_tail_accumulate",
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14, extra_flags=_FLAGS)
@@ -269,13 +273,89 @@ def tail_prepass(meta, band_cuts, chunk: int, budget: int,
                                       budget)
         return band, rect, step_slot_masks(meta, chunk, budget, budget_lo)
     steps = npts // chunk
-    meta = meta.contiguous()
-    cuts = band_cuts.to(torch.int32).contiguous()
+    if not meta.is_contiguous():
+        meta = meta.contiguous()
+    cuts = band_cuts
+    if cuts.dtype != torch.int32 or not cuts.is_contiguous():
+        cuts = cuts.to(torch.int32).contiguous()
     out = torch.empty((steps, 6), dtype=torch.int32, device=meta.device)
     TAIL_PREPASS(meta, cuts, out, npts,
                  chunk, budget, budget_lo, k_bands - 1, steps,
                  stream=_stream(meta))
     return out[:, 0], out[:, 1:5], out[:, 5]
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 modulo 2^32: the kernel's uint32 sum, reinterpreted."""
+    return ((x + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def prepass_walk(meta, band_cuts, chunk: int, budget: int,
+                 budget_lo: int = 0):
+    """K6's walk of a chunk (`csrc/tail_prepass.cu`) in plain PyTorch: one
+    block of PREPASS_THREADS threads a chunk, reading 16-byte vectors when
+    the meta's base is 16-byte aligned and chunk % 4 == 0 (the vector path),
+    else single words (the scalar path); a load's entries go to thread
+    `load % PREPASS_THREADS`, whose partials (min tx0 / ty0, max tx1 / ty1,
+    the depth sum modulo 2^32, the live count) are combined into the
+    chunk's row; a warp's load (32 vectors or words) puts its maximum live
+    span into the sub-block of its first entry, and only where the chunk has
+    at most MASK_BITS sub-blocks. Returns ((band (S,), rect (S, 4),
+    slot_mask (S,)), vec): what tail_prepass returns, and which path ran."""
+    npts = meta.shape[1]
+    steps = npts // chunk
+    vec = meta.data_ptr() % 16 == 0 and chunk % 4 == 0
+    words = 4 if vec else 1                       # entries a load
+    load = torch.arange(chunk, device=meta.device) // words
+    thread = (load % PREPASS_THREADS).expand(steps, chunk)
+    tx0, tx1, ty0, ty1, dbits, span = meta.reshape(6, steps, chunk)
+    live = _live_window(span, budget_lo, budget)
+
+    def reduce(x, fill, how):
+        """(steps, threads) partials: each thread's reduction of its
+        entries."""
+        src = torch.where(live, x, fill).to(torch.int64)
+        part = torch.full((steps, PREPASS_THREADS), fill, dtype=torch.int64,
+                          device=meta.device)
+        return part.scatter_reduce(1, thread, src, how)
+    cnt = reduce(live.to(torch.int32), 0, "sum").sum(dim=1)
+    any_live = cnt > 0
+
+    def comb(x, fill, how):
+        p = reduce(x, fill, how)
+        p = p.amin(dim=1) if how == "amin" else p.amax(dim=1)
+        return torch.where(any_live, p, 0).to(torch.int32)
+    mtx0, mty0 = comb(tx0, INT32_MAX, "amin"), comb(ty0, INT32_MAX, "amin")
+    mtx1, mty1 = comb(tx1, -1, "amax"), comb(ty1, -1, "amax")
+    tyw = torch.div(mty0, 8, rounding_mode="floor") * 8
+    nwx = torch.div(mtx1 - mtx0, WIN_TX, rounding_mode="floor") + 1
+    nwy = torch.div(mty1 - tyw, WIN_TY, rounding_mode="floor") + 1
+    d_sum = _wrap_int32(_wrap_int32(reduce(dbits, 0, "sum")).to(
+        torch.int64).sum(dim=1))
+    d_cnt = torch.clamp(cnt, min=1).to(torch.int32)
+    d_mean = torch.div(d_sum, d_cnt, rounding_mode="floor")
+    band = ((-d_mean)[:, None] >= band_cuts[None, :].to(torch.int32)).sum(
+        dim=1, dtype=torch.int32)
+    mask = torch.zeros(steps, dtype=torch.int32, device=meta.device)
+    sub = min(SUB, chunk)
+    nsub = chunk // sub
+    if nsub <= MASK_BITS:
+        group = (load // 32).expand(steps, chunk)      # a warp's load
+        ngroups = int(load[-1]) // 32 + 1
+        gmax = torch.zeros((steps, ngroups), dtype=torch.int32,
+                           device=meta.device).scatter_reduce(
+            1, group, torch.where(live, span, 0), "amax")
+        first = torch.arange(ngroups, device=meta.device) * 32 * words
+        j = (first // sub).expand(steps, ngroups)
+        m = torch.zeros((steps, nsub), dtype=torch.int32,
+                        device=meta.device).scatter_reduce(1, j, gmax, "amax")
+        for s in range(budget):
+            if (s + 1) * nsub > MASK_BITS:
+                break
+            bits = (m > max(s, budget_lo)).to(torch.int32)
+            for jj in range(nsub):
+                mask = mask | (bits[:, jj] << (s * nsub + jj))
+    return (band, torch.stack([mtx0, tyw, nwx, nwy], dim=1), mask), vec
 
 
 # ---------------------------------------------------------------------------
