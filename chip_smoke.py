@@ -121,7 +121,37 @@ on the same card at each of those call sites. Phases:
       with their plain versions, at PACK_ODD_SHAPES (R 1 to 16, n = 0,
       n % 4 != 0, n = pad_to, pad_to % 4 != 0, views 1-3 words off 16 bytes,
       int32); both timed beside the earlier form and the PyTorch call, in
-      three turns of alternating order (medians).
+      three turns of alternating order (medians);
+  the exact-order paths (`render_splats4d`, `render_splats3d`,
+  `render_splats2d`: the splats in front-to-back order, the pairs sorted by
+  (tile, splat index)), under EXACT_CFGS: the default config (xla backend,
+  plain PyTorch, 32x32 tiles), the viewer's pallas config (8x128, K1) and
+  the pallas backend at 32x32 with three deepening passes of 128:
+  (r) 20K-splat scenes made from a seed (4D, its 3D slice, 2D) at 512x256,
+      card against CPU: the front-to-back permutation and the exact binning
+      of one projection equal bit for bit at 32x32 and 8x128 tiles; each
+      frame's launch counts (K1 once a pass with pallas, nothing with xla);
+      the composite of one binning within EDGE_TOL and the frame from the
+      splats within the frame tolerance; K1 (pass 1 and its `sel` form) and
+      K8 (a grad step) against their plain versions at every captured
+      input, on the 2D path too; the dense renderer on the card against the
+      CPU (2,000 of the 4D splats at 256x128);
+  (s) the viewer's full-width frame, the reference's `linear` scene at its
+      size on the reference's fallback model (182,400 motion splats,
+      `linear_scene`), at 800x800 and 1920x1080 under the viewer's and the
+      default config at t = 20: the binning of the frame's projection
+      equal on card and CPU (`overflowed` included), launch counts, the
+      median ms, peak memory and aux of each frame, K1 against plain at its
+      inputs (the frame is black: M = 1,024 keeps only faded pairs); the
+      xla frame at 800x800 with the chunk's color sum as a matmul
+      (`pipeline._color_sum`) and as a broadcast product and sum, timed in
+      turns; a pallas grad step at 1920x1080 (K8 against plain) and an xla
+      grad step at 800x800, each timed with its peak memory; then the lit
+      frame: the viewer's pallas config at the viewer's default t = 0,
+      800x800, with M = LINEAR_M_LIT so that no tile is truncated, its
+      binning equal on card and CPU, its image lit and within the parity
+      tolerances of the dense renderer on the card, K1 and K8 (a grad step)
+      against plain at its inputs, K8 and plain against plain in float64.
 
 Any failed check raises, so the script exits non-zero. It prints a JSON
 line with one entry per kernel and path (launches per frame or grad step of
@@ -227,6 +257,33 @@ W_BAND, H_BAND = 1408, 1536      # 8x64 tiles: 4,224 tiles, three bands
 # weight exp(-8) = 3.4e-4 times the record's alpha: that is the tolerance.
 EDGE_TOL = 4e-4
 TIMED_FRAMES_NEW = 5
+# The exact-order paths (r, s): the default config (xla backend, 32x32
+# tiles), the viewer's pallas config, and the pallas backend at 32x32 with
+# three deepening passes over every tile, in slabs of 128 pairs so that the
+# passes after the first find pairs left; the tile shapes of their binnings.
+EXACT_CFGS = (("xla 32x32", {}),
+              ("viewer pallas 8x128", dict(tile_h=8, tile_w=128,
+                                           backend="pallas")),
+              ("pallas 32x32 deepening 3x128", dict(
+                  backend="pallas", max_splats_per_tile=128,
+                  deepening_passes=3, deepening_fraction=1.0)))
+EXACT_TILES = ((32, 32), (8, 128))
+N_DENSE, W_DENSE, H_DENSE = 2_000, 256, 128
+# The viewer's full-width scene: the reference's `linear` scene on its
+# fallback model (the torus grid of models.teapot, 76 x 48 vertices) x 50
+# steps, at t = 20 from the scene's camera, at the viewer's 800x800 and at
+# 1920x1080; and at the viewer's default t = 0, where the frame is lit.
+LINEAR_GRID, LINEAR_STEPS, LINEAR_T, LINEAR_T_LIT = (76, 48), 50, 20.0, 0.0
+# The lit frame's capacity, above its deepest tile (68,600 pairs at
+# 800x800, 8x128 tiles, t = 0), and the tiled path's tolerances against the
+# dense model at a capacity that truncates nothing (tests/test_parity.py):
+# mean and max |d| over rgba.
+LINEAR_M_LIT = 1 << 17
+PARITY_MEAN, PARITY_MAX = 5e-4, 0.02
+LINEAR_CAMERA = dict(position=(60.0, 90.0, 90.0),
+                     orientation=(0.0, -1.0, -1.0))
+VIEWER_SIZES = ((800, 800), (1920, 1080))
+TIMED_FRAMES_EXACT = 5
 # Odd shapes of the row pack (q): (R, n, pad_to, the rows' storage offset
 # in words, dtype). n % 4 != 0 and pad_to % 4 != 0 put the word-by-word edge
 # of a vector and rows off 16 bytes (every other packed row at pad_to % 4 ==
@@ -293,15 +350,11 @@ def grad_loss(img):
     return (img[..., :3] ** 2).mean()
 
 
-def capture_kernel_inputs(params, camera, cfg, targets, t=0.0, grad=False):
-    """Render one frame with the kernel wrappers `targets` ((module, name)
-    pairs) wrapped so that each records the cloned arguments of every call:
-    the inputs the path really gives each kernel. With `grad`, the frame is
-    a grad step: grad_loss of the frame at `t`, backward to the params.
+def capture_calls(frame, targets):
+    """Run `frame()` with the wrappers `targets` ((module, name) pairs)
+    wrapped so that each records the cloned arguments of every call.
     Returns {"module.name": [(args, kwargs), ...]} (the calling module's
-    last name) in call order."""
-    from fourdgs_torch.render import pipeline as TP
-
+    last name) in call order; every target must have been called."""
     seen = {}
     originals = {}
 
@@ -319,13 +372,7 @@ def capture_kernel_inputs(params, camera, cfg, targets, t=0.0, grad=False):
     for owner, name in targets:
         wrap(owner, name)
     try:
-        if grad:
-            p = {k: v.detach().clone().requires_grad_(True)
-                 for k, v in params.items()}
-            grad_loss(TP.render_params4d_packed(p, camera, t, cfg=cfg)
-                      ).backward()
-        else:
-            TP.render_params4d_packed(params, camera, t, cfg=cfg)
+        frame()
     finally:
         for (owner, name), fn in originals.items():
             setattr(owner, name, fn)
@@ -333,6 +380,24 @@ def capture_kernel_inputs(params, camera, cfg, targets, t=0.0, grad=False):
     check(set(seen) == want, f"the path skipped a kernel wrapper: saw "
           f"{sorted(seen)}, want {sorted(want)}")
     return seen
+
+
+def capture_kernel_inputs(params, camera, cfg, targets, t=0.0, grad=False):
+    """Render one frame of the packed params with the kernel wrappers
+    `targets` recording their arguments (capture_calls): the inputs the path
+    really gives each kernel. With `grad`, the frame is a grad step:
+    grad_loss of the frame at `t`, backward to the params."""
+    from fourdgs_torch.render import pipeline as TP
+
+    def frame():
+        if grad:
+            p = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in params.items()}
+            grad_loss(TP.render_params4d_packed(p, camera, t, cfg=cfg)
+                      ).backward()
+        else:
+            TP.render_params4d_packed(params, camera, t, cfg=cfg)
+    return capture_calls(frame, targets)
 
 
 def nbytes(*tensors):
@@ -891,6 +956,7 @@ def phase_small_frame(dev, converged, tag=None, w=W_SMALL, h=H_SMALL,
     pm = cam_cpu.proj_matrix()
     bin_kw = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w,
                   max_tiles_per_splat=cfg.max_tiles_per_splat,
+                  quantized_depth=True,
                   compact_keep_cols=cfg.sort_compact_keep_cols,
                   big_splat_budget=cfg.big_splat_budget,
                   big_splat_keep_cols=cfg.big_splat_keep_cols,
@@ -1536,7 +1602,7 @@ def phase_small_grads(dev, converged, kernels):
     b_gpu = TT.bin_splats(
         proj_cpu.to(dev), pm[0, 0].to(dev), pm[1, 1].to(dev), W_SMALL,
         H_SMALL, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-        max_tiles_per_splat=cfg.max_tiles_per_splat,
+        max_tiles_per_splat=cfg.max_tiles_per_splat, quantized_depth=True,
         compact_keep_cols=cfg.sort_compact_keep_cols,
         big_splat_budget=cfg.big_splat_budget,
         big_splat_keep_cols=cfg.big_splat_keep_cols, pallas_compact=True,
@@ -2237,6 +2303,645 @@ def phase_pack_rows(dev, kernels):
     return results, launches
 
 
+# ---------------------------------------------------------------------------
+# The exact-order paths: render_splats4d / 3d / 2d (phases (r) and (s))
+# ---------------------------------------------------------------------------
+
+def exact_kind(splats):
+    return {"Splats4D": "4d", "Splats3D": "3d",
+            "Splats2D": "2d"}[type(splats).__name__]
+
+
+def render_exact(splats, camera, cfg, t=T_GRAD, return_aux=False):
+    """One frame of the entry point of `splats`' kind: render_splats4d at
+    time t (a 0-d tensor on the splats' device), render_splats3d,
+    render_splats2d."""
+    import torch
+    from fourdgs_torch.render import pipeline as TP
+    kind = exact_kind(splats)
+    if kind == "4d":
+        t = torch.tensor(t, device=splats.position.device)
+        return TP.render_splats4d(splats, camera, t, cfg=cfg,
+                                  return_aux=return_aux)
+    if kind == "3d":
+        return TP.render_splats3d(splats, camera, cfg=cfg,
+                                  return_aux=return_aux)
+    return TP.render_splats2d(splats, camera, cfg=cfg, return_aux=return_aux)
+
+
+def exact_grad_step(splats, camera, cfg, t=T_GRAD):
+    """grad_loss of one frame at time t, backward to the splats' position,
+    covariance and color. Returns their gradients."""
+    leaves = {k: getattr(splats, k).detach().clone().requires_grad_(True)
+              for k in ("position", "color", "cov")}
+    grad_loss(render_exact(type(splats)(**leaves), camera, cfg, t)).backward()
+    return {k: v.grad for k, v in leaves.items()}
+
+
+def small_exact_scenes(seed=11):
+    """(r)'s scenes, made on the CPU from a seed: 20K 4D splats (the 20K
+    cube's positions, rotations, scales and colors, with random velocities
+    and time centres), their slice at t = 0 as 3D splats, and 20K 2D splats
+    spread over the 2D scene's view."""
+    import math
+
+    import torch
+    from fourdgs_torch.scenes.cube import build_cube_scene
+    from fourdgs_torch.splats import gaussians as G
+
+    p = build_cube_scene(N_SMALL, seed=1, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    n = N_SMALL
+
+    def cols(*keys):
+        return torch.stack([p[k] for k in keys], -1)
+    s4 = G.Splats4D.from_motion(
+        position4=torch.cat([cols("px", "py", "pz"),
+                             torch.rand((n, 1), generator=g) * 2 - 1], -1),
+        quat=cols("qw", "qx", "qy", "qz"), scale3=cols("sx", "sy", "sz"),
+        lifetime=p["lifetime"], fade=p["fade"],
+        velocity=torch.randn((n, 3), generator=g) * 20.0,
+        color=cols("cr", "cg", "cb", "ca"))
+    sliced, _ = s4.at_time(0.0)
+    s3 = G.Splats3D(position=sliced.position, color=s4.color, cov=sliced.cov)
+    ang = torch.rand(n, generator=g) * (2 * math.pi)
+    scale = torch.rand((n, 2), generator=g) * 0.35 + 0.05
+    s2 = G.Splats2D(
+        position=(torch.rand((n, 2), generator=g) * 2 - 1)
+        * torch.tensor([5.5, 1.4]),
+        color=torch.cat([torch.rand((n, 3), generator=g),
+                         torch.rand((n, 1), generator=g) * 0.7 + 0.3], -1),
+        cov=G.build_cov2d(torch.stack([torch.cos(ang), torch.sin(ang)], -1),
+                          scale[:, 0] ** 2, scale[:, 1] ** 2))
+    return {"4d": s4, "3d": s3, "2d": s2}
+
+
+def linear_scene(steps=None):
+    """(s)'s scene, on the CPU: the reference's `linear` scene
+    (fourdgs/scenes/scenes.py: linear_motion over _sweep_model) on the
+    reference's own model where its teapot file is absent, the torus grid
+    of models.teapot (torus(76, 48): radii 1.5 and 0.6, 3,648 vertices),
+    at full size: 3,648 vertices x 50 steps = 182,400 motion splats. The
+    model is scaled by 5; step dt shifts it by (dt, 0, 0) and centres its
+    splats at time dt; splat scale (4, 4, 1), lifetime 1, fade 0.5,
+    velocity (1, 0, 0), each splat turned to look along its vertex normal,
+    colors from the model's gradient. Float64 where the reference computes
+    in numpy's float64, float32 where it computes in float32."""
+    import math
+
+    import torch
+    from fourdgs_torch.core.transforms import quat_look_at
+    from fourdgs_torch.splats import gaussians as G
+
+    steps = LINEAR_STEPS if steps is None else steps
+    f64 = torch.float64
+    u = torch.arange(LINEAR_GRID[0], dtype=f64) * (2 * math.pi
+                                                   / LINEAR_GRID[0])
+    v = torch.arange(LINEAR_GRID[1], dtype=f64) * (2 * math.pi
+                                                   / LINEAR_GRID[1])
+    uu, vv = torch.meshgrid(u, v, indexing="ij")
+    ring = 1.5 + 0.6 * torch.cos(vv)
+    pos = torch.stack([ring * torch.cos(uu), 0.6 * torch.sin(vv),
+                       ring * torch.sin(uu)], -1).reshape(-1, 3).float()
+    nrm = torch.stack([torch.cos(vv) * torch.cos(uu), torch.sin(vv),
+                       torch.cos(vv) * torch.sin(uu)],
+                      -1).reshape(-1, 3).float()
+    n_v = pos.shape[0]
+    # The reference's model_gradient_color: brightness from the normal's
+    # angle to -y, rgb along the model's bounding box, alpha 1.
+    bright = (nrm[:, 1].to(f64) + 1.0) / 2.0 * 0.35 + 0.65
+    lo, hi = pos.min(0).values, pos.max(0).values
+    frac = (pos - lo).to(f64) / torch.clamp((hi - lo).to(f64), min=1e-9)
+    color = torch.cat([bright[:, None] * frac, torch.ones(n_v, 1, dtype=f64)],
+                      -1).clamp(0, 1).float()
+    dt = torch.arange(steps, dtype=f64)
+    shift = torch.stack([dt, 0 * dt, 0 * dt], -1)[:, None]
+    n = n_v * steps
+    pos4 = torch.cat([
+        ((pos * 5.0)[None].to(f64) + shift).reshape(n, 3).float(),
+        dt.float().repeat_interleave(n_v)[:, None]], -1)
+    unit = nrm / torch.clamp(torch.linalg.vector_norm(nrm, dim=1,
+                                                      keepdim=True), min=1e-9)
+    return G.Splats4D.from_motion(
+        position4=pos4,
+        quat=quat_look_at(unit, torch.tensor([0.0, 1.0, 0.0])).repeat(
+            steps, 1),
+        scale3=torch.tensor([4.0, 4.0, 1.0]).expand(n, 3),
+        lifetime=torch.ones(n), fade=torch.full((n,), 0.5),
+        velocity=torch.tensor([1.0, 0.0, 0.0]).expand(n, 3),
+        color=color.repeat(steps, 1))
+
+
+def exact_binning_check(tag, splats, cam_cpu, dev, tiles, t=T_GRAD):
+    """The exact binning of one projection, the CPU's, on the card and on
+    the CPU: the projection and the depth keys of a CPU frame of `splats`
+    as the pipeline hands them on (captured), the front-to-back permutation
+    of the keys on both devices, and at each tile shape the binning of the
+    CPU-permuted projection on both devices; every integer equal,
+    `overflowed` included. Returns (a line for the log, the permuted
+    projection, p00, p11)."""
+    import torch
+    from fourdgs_torch.render import pipeline as TP
+    from fourdgs_torch.render import sort as TS
+    from fourdgs_torch.render import tiles as TT
+
+    # Only the binning's inputs are wanted: a capacity of 0 leaves the
+    # frame's composite nothing to do.
+    cap = capture_calls(lambda: render_exact(
+        splats, cam_cpu, TP.RenderConfig(max_splats_per_tile=0), t),
+        [(TP, "front_to_back_order"), (TP, "bin_splats")])
+    (depth,), _ = cap["pipeline.front_to_back_order"][0]
+    (proj, p00, p11, w, h), _ = cap["pipeline.bin_splats"][0]
+    order = TS.front_to_back_order(depth)
+    order_gpu = TS.front_to_back_order(depth.to(dev))
+    check(torch.equal(order_gpu.cpu(), order),
+          f"{tag} the front-to-back permutation differs between card and CPU")
+    check(torch.equal(proj.depth, depth[order]),
+          f"{tag} the captured projection is not the permuted one")
+    proj_gpu = proj.to(dev)
+    lines = []
+    for tile_h, tile_w in tiles:
+        b_cpu = TT.bin_splats(proj, p00, p11, w, h, tile_h, tile_w)
+        b_gpu = TT.bin_splats(proj_gpu, p00.to(dev), p11.to(dev), w, h,
+                              tile_h, tile_w)
+        for f in ("pair_splat", "pair_tile", "tile_start", "overflowed"):
+            check(torch.equal(getattr(b_gpu, f).cpu(), getattr(b_cpu, f)),
+                  f"{tag} exact binning {tile_h}x{tile_w}: {f} differs "
+                  f"between card and CPU")
+        counts = b_cpu.tile_start[1:] - b_cpu.tile_start[:-1]
+        lines.append(f"{tile_h}x{tile_w}: {int(b_cpu.tile_start[-1]):,} "
+                     f"pairs, deepest tile {int(counts.max()):,}, "
+                     f"overflowed {int(b_cpu.overflowed):,}")
+    line = (f"front-to-back permutation of {depth.shape[0]:,} splats equal; "
+            f"binning equal (pair_splat, pair_tile, tile_start, overflowed) "
+            f"at " + "; ".join(lines))
+    return line, proj, p00, p11
+
+
+def composite_of_binning(proj, binning, cfg, w, h, p00, p11):
+    """The composite of one binning on the projection's device, as
+    render_projected runs it for cfg's backend: (T, P, 4) tiles."""
+    import torch
+    from fourdgs_torch.render import pipeline as TP
+    from fourdgs_torch.render import tiles as TT
+    dev = proj.mx.device
+    px, py, _ = TT.tile_pixel_ndc(w, h, cfg.tile_h, cfg.tile_w, device=dev)
+    bg = torch.tensor(cfg.background, device=dev)
+    if cfg.backend == "pallas":
+        return TP._composite_pallas_progressive(
+            proj, binning, px, py, p00, p11, bg, cfg, image_size=(w, h))[0]
+    tile_splat, tile_live = TP._gather_tile_lists(binning, cfg)
+    return TP._composite_tiles_xla(proj, tile_splat, tile_live, px, py, p00,
+                                   p11, bg, cfg.splat_chunk)
+
+
+def frame_err(got, want):
+    """(mean |d|, share of pixels with |d| > 1e-3, max |d|) over rgba."""
+    err = (got.cpu() - want.cpu()).abs().amax(dim=-1)
+    return (float(err.mean()), float((err > 1e-3).float().mean()),
+            float(err.max()))
+
+
+def phase_exact_small(dev, kernels):
+    """(r): the exact paths at 20K splats and 512x256, card against CPU.
+    For each entry point (render_splats4d, 3d, 2d): the exact binning of one
+    projection equal on both devices (exact_binning_check); under each of
+    EXACT_CFGS, the frame (launch counts of the card's frame, the composite
+    of the CPU's binning on both devices, the frame from the splats), and for
+    the pallas configs K1 (pass 1 and the `sel` passes) against its plain
+    version at every captured input, and K8 at the inputs of a grad step;
+    then the dense renderer on the card against the CPU. Returns (results,
+    launches) keyed by path."""
+    import dataclasses
+
+    import torch
+    from fourdgs_torch.core.camera import Camera
+    from fourdgs_torch.ops import composite_cuda
+    from fourdgs_torch.render import dense as TD
+    from fourdgs_torch.render import pipeline as TP
+    from fourdgs_torch.render import tiles as TT
+    from fourdgs_torch.scenes.cube import CUBE_CAMERA
+
+    scenes = small_exact_scenes()
+    results, launches = {}, {}
+    for kind, s_cpu in scenes.items():
+        s_gpu = s_cpu.to(dev)
+        cam_kw = CUBE_CAMERA if kind != "2d" else {}
+        cam = Camera.create(**cam_kw, width=W_SMALL, height=H_SMALL,
+                            device=dev)
+        cam_cpu = Camera.create(**cam_kw, width=W_SMALL, height=H_SMALL,
+                                device="cpu")
+        tag = f"(r) exact {kind}"
+        line, proj, p00, p11 = exact_binning_check(tag, s_cpu, cam_cpu, dev,
+                                                   EXACT_TILES)
+        print(f"{tag} {N_SMALL:,} splats {W_SMALL}x{H_SMALL}: {line}")
+        w, h = W_SMALL, H_SMALL
+        for label, kw in EXACT_CFGS:
+            cfg = TP.RenderConfig(**kw)
+            path = f"exact {kind}, {label}, {W_SMALL}x{H_SMALL}"
+            for k in kernels.values():
+                k.launches = 0
+            img_g, aux_g = render_exact(s_gpu, cam, cfg, return_aux=True)
+            torch.cuda.synchronize()
+            launches[path] = {n: k.launches for n, k in kernels.items()}
+            passes = cfg.deepening_passes if cfg.backend == "pallas" else 0
+            check(launches[path]["K1 composite"] == passes
+                  and sum(launches[path].values()) == passes,
+                  f"{tag} {label}: launches {launches[path]}, want K1 "
+                  f"{passes} and nothing else")
+            img_c, aux_c = render_exact(s_cpu, cam_cpu, cfg, return_aux=True)
+            mean, share, mx = frame_err(img_g, img_c)
+            check(tuple(img_g.shape) == (H_SMALL, W_SMALL, 4)
+                  and bool(torch.isfinite(img_g).all())
+                  and mean < 1e-4 and share < 0.01,
+                  f"{tag} {label} frame: mean |d| {mean:.3e}, share > 1e-3 "
+                  f"{share:.4f}")
+            b_cpu = TT.bin_splats(proj, p00, p11, w, h, cfg.tile_h,
+                                  cfg.tile_w)
+            b_gpu = TT.TileBinning(**{
+                f.name: None if getattr(b_cpu, f.name) is None
+                else getattr(b_cpu, f.name).to(dev)
+                for f in dataclasses.fields(b_cpu)})
+            t_k = composite_of_binning(proj.to(dev), b_gpu, cfg, w, h,
+                                       p00.to(dev), p11.to(dev))
+            t_p = composite_of_binning(proj, b_cpu, cfg, w, h, p00, p11)
+            comp = float((t_k.cpu() - t_p).abs().max())
+            check(comp <= EDGE_TOL, f"{tag} {label} composite of one "
+                  f"binning: max |d| {comp:.3e} > {EDGE_TOL:g}")
+            aux = {k: float(v) for k, v in aux_g.items()}
+            aux_same = all(float(aux_c[k]) == v for k, v in aux.items())
+            print(f"{tag} {label}: launches K1 {passes}, nothing else; "
+                  f"composite of one binning max |d| {comp:.3e}; frame from "
+                  f"the splats mean |d| {mean:.3e}, max |d| {mx:.3e}, share "
+                  f"> 1e-3 {share:.5f}; aux {json.dumps(aux)} "
+                  f"({'equal to' if aux_same else 'differs from'} the CPU's "
+                  f"{json.dumps({k: float(v) for k, v in aux_c.items()})})")
+            if cfg.backend != "pallas":
+                continue
+            cap = capture_calls(
+                lambda: render_exact(s_gpu, cam, cfg),
+                [(TP, "composite_records")]
+                + [(TP, "composite_records_at")] * (passes > 1))
+            results[path] = {"K1 composite": phase_composite(
+                f"{tag} {label}", cap["pipeline.composite_records"],
+                cap.get("pipeline.composite_records_at", ()))}
+            del cap
+            step = f"exact {kind} grad step, {label}, {W_SMALL}x{H_SMALL}"
+            for k in kernels.values():
+                k.launches = 0
+            cap = capture_calls(
+                lambda: exact_grad_step(s_gpu, cam, cfg),
+                [(composite_cuda, "composite_records_bwd")])
+            torch.cuda.synchronize()
+            launches[step] = {n: k.launches for n, k in kernels.items()}
+            check(launches[step]["K1 composite"] == passes
+                  and launches[step]["K8 composite_bwd"] == passes,
+                  f"{tag} {label} grad step: launches {launches[step]}")
+            results[step] = phase_backward_kernels(
+                f"{tag} {label} grad step",
+                cap["composite_cuda.composite_records_bwd"], [])
+            del cap
+            torch.cuda.empty_cache()
+
+    # The dense renderer, card against CPU, on the first N_DENSE splats of
+    # the 4D scene (one splat at a time against every pixel: the full 20K
+    # at 512x256 is minutes on the CPU).
+    s4 = scenes["4d"]
+    part = type(s4)(**{k: getattr(s4, k)[:N_DENSE]
+                       for k in ("position", "color", "cov")})
+    cam = Camera.create(**CUBE_CAMERA, width=W_DENSE, height=H_DENSE,
+                        device=dev)
+    cam_cpu = Camera.create(**CUBE_CAMERA, width=W_DENSE, height=H_DENSE,
+                            device="cpu")
+    img_g = TD.render_splats4d(part.to(dev), cam, T_GRAD)
+    img_c = TD.render_splats4d(part, cam_cpu, T_GRAD)
+    mean, share, mx = frame_err(img_g, img_c)
+    check(bool(torch.isfinite(img_g).all()) and mean < 1e-4 and share < 0.01,
+          f"(r) dense renderer: mean |d| {mean:.3e}, share > 1e-3 "
+          f"{share:.4f}")
+    sliced, top = part.at_time(T_GRAD)
+    proj = TD.sort_front_to_back(TD.project_splats(
+        sliced.position, sliced.cov, part.color, top, cam_cpu))
+    px, py = TD.pixel_centers_ndc(W_DENSE, H_DENSE, device="cpu")
+    pm = cam_cpu.proj_matrix()
+    bg = torch.tensor([0.0, 0.0, 0.0, 1.0])
+    d_c = TD.composite_dense(proj, px, py, pm[0, 0], pm[1, 1], bg)
+    d_g = TD.composite_dense(proj.to(dev), px.to(dev), py.to(dev),
+                             pm[0, 0].to(dev), pm[1, 1].to(dev), bg.to(dev))
+    comp = float((d_g.cpu() - d_c).abs().max())
+    check(comp <= EDGE_TOL, f"(r) dense composite of one projection: max "
+          f"|d| {comp:.3e} > {EDGE_TOL:g}")
+    print(f"(r) dense renderer, {N_DENSE:,} of the 4D splats at "
+          f"{W_DENSE}x{H_DENSE}, card against CPU: composite of one "
+          f"projection max |d| {comp:.3e}; frame from the splats mean |d| "
+          f"{mean:.3e}, max |d| {mx:.3e}, share > 1e-3 {share:.5f}; mean rgb "
+          f"{float(img_c[..., :3].mean()):.4f}")
+    return results, launches
+
+
+def _timed_ms(fn, reps):
+    """Median host milliseconds of `reps` calls of fn after one untimed
+    call, each ended by a synchronize (the clock of phase_full_frame), and
+    the peak memory of those calls in GiB."""
+    import torch
+    dev = torch.device("cuda", 0)
+    out = fn()
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del out
+    return (statistics.median(times), times,
+            torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+
+
+def phase_exact_full(dev, kernels):
+    """(s): the viewer's full-width exact frame, linear_scene's 182,400
+    motion splats at t = 20 from the scene's camera, at 800x800 and
+    1920x1080, under the viewer's pallas config and the default config: the
+    exact binning of the frame's projection equal on card and CPU
+    (`overflowed` included) at both tile shapes; per frame the launch
+    counts, the median ms, peak memory and aux (overflowed and the
+    truncation residual printed: the exact path has no big-splat tier and
+    M = 1024 truncates deep tiles, as in the reference); K1 against its
+    plain version at the pallas frame's inputs; the xla frame's color sum
+    in both forms (color_sum_forms). Then one grad step of the pallas
+    backend at 1920x1080 (K8 against its plain version at its inputs) and
+    one of the xla backend at 800x800, each with its launch counts, time
+    and peak memory; and the lit frame (lit_frame). Returns (results,
+    launches)."""
+    import torch
+    from fourdgs_torch.core.camera import Camera
+    from fourdgs_torch.ops import composite_cuda
+    from fourdgs_torch.render import pipeline as TP
+
+    t0 = time.time()
+    s_cpu = linear_scene()
+    s_gpu = s_cpu.to(dev)
+    print(f"(s) linear scene {s_cpu.count:,} motion splats "
+          f"({s_cpu.count // LINEAR_STEPS:,} vertices x {LINEAR_STEPS} "
+          f"steps) built in {time.time() - t0:.1f} s")
+    results, launches = {}, {}
+    for w, h in VIEWER_SIZES:
+        cam = Camera.create(**LINEAR_CAMERA, width=w, height=h, device=dev)
+        cam_cpu = Camera.create(**LINEAR_CAMERA, width=w, height=h,
+                                device="cpu")
+        tag = f"(s) {w}x{h}"
+        print(f"{tag}: " + exact_binning_check(
+            tag, s_cpu, cam_cpu, dev, EXACT_TILES, LINEAR_T)[0])
+        for label, kw in EXACT_CFGS[:2]:
+            cfg = TP.RenderConfig(**kw)
+            path = f"exact 4d, {label}, {w}x{h}"
+            for k in kernels.values():
+                k.launches = 0
+            img, aux = render_exact(s_gpu, cam, cfg, LINEAR_T,
+                                    return_aux=True)
+            torch.cuda.synchronize()
+            launches[path] = {n: k.launches for n, k in kernels.items()}
+            want = 1 if cfg.backend == "pallas" else 0
+            check(launches[path]["K1 composite"] == want
+                  and sum(launches[path].values()) == want,
+                  f"{tag} {label}: launches {launches[path]}")
+            check(tuple(img.shape) == (h, w, 4)
+                  and bool(torch.isfinite(img).all()),
+                  f"{tag} {label}: frame not finite")
+            # Not required to be lit: M = 1,024 keeps each deep tile's
+            # nearest pairs, of time slices faded out at the frame's time,
+            # as in the reference (its own frame of this scene is black
+            # too); lit_frame renders it lit.
+            mean_rgb = float(img[..., :3].mean())
+            del img
+            med, times, peak = _timed_ms(
+                lambda: render_exact(s_gpu, cam, cfg, LINEAR_T),
+                TIMED_FRAMES_EXACT)
+            print(f"{tag} {label}: median {med:.2f} ms ({1e3 / med:.2f} "
+                  f"fps) over {TIMED_FRAMES_EXACT} frames "
+                  f"[{', '.join(f'{x:.2f}' for x in times)}]; peak memory "
+                  f"{peak:.2f} GiB; aux "
+                  f"{json.dumps({k: float(v) for k, v in aux.items()})}; "
+                  f"mean rgb {mean_rgb:.4f}; launches per frame "
+                  f"{json.dumps(launches[path])}")
+            if cfg.backend == "pallas":
+                cap = capture_calls(
+                    lambda: render_exact(s_gpu, cam, cfg, LINEAR_T),
+                    [(TP, "composite_records")])
+                results[path] = {"K1 composite": phase_composite(
+                    f"{tag} {label}", cap["pipeline.composite_records"])}
+                del cap
+            elif (w, h) == VIEWER_SIZES[0]:
+                color_sum_forms(tag, s_gpu, cam, cfg)
+            torch.cuda.empty_cache()
+
+    for (w, h), (label, kw) in (((1920, 1080), EXACT_CFGS[1]),
+                                ((800, 800), EXACT_CFGS[0])):
+        cfg = TP.RenderConfig(**kw)
+        cam = Camera.create(**LINEAR_CAMERA, width=w, height=h, device=dev)
+        tag = f"(s) grad step {w}x{h}, {label}"
+        path = f"exact 4d grad step, {label}, {w}x{h}"
+        for k in kernels.values():
+            k.launches = 0
+        targets = ([(composite_cuda, "composite_records_bwd")]
+                   if cfg.backend == "pallas" else [])
+        grads = {}
+        cap = capture_calls(
+            lambda: grads.update(exact_grad_step(s_gpu, cam, cfg, LINEAR_T)),
+            targets)
+        torch.cuda.synchronize()
+        launches[path] = {n: k.launches for n, k in kernels.items()}
+        want = 1 if cfg.backend == "pallas" else 0
+        check(launches[path]["K1 composite"] == want
+              and launches[path]["K8 composite_bwd"] == want
+              and sum(launches[path].values()) == 2 * want,
+              f"{tag}: launches {launches[path]}")
+        for k, g in grads.items():
+            check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+                  f"{tag}: gradient of {k} not finite or zero")
+        if targets:
+            results[path] = phase_backward_kernels(
+                tag, cap["composite_cuda.composite_records_bwd"], [])
+        del cap, grads
+        torch.cuda.empty_cache()
+        med, times, peak = _timed_ms(
+            lambda: exact_grad_step(s_gpu, cam, cfg, LINEAR_T), 3)
+        print(f"{tag}: mean(img[..., :3]^2) at t={LINEAR_T}, forward + "
+              f"backward median {med:.2f} ms over 3 steps "
+              f"[{', '.join(f'{x:.2f}' for x in times)}]; peak memory "
+              f"{peak:.2f} GiB; launches per step "
+              f"{json.dumps(launches[path])}; every gradient finite and "
+              f"nonzero")
+        torch.cuda.empty_cache()
+    lit_res, lit_launches = lit_frame(s_cpu, s_gpu, dev, kernels)
+    results.update(lit_res)
+    launches.update(lit_launches)
+    return results, launches
+
+
+def color_sum_forms(tag, s_gpu, cam, cfg):
+    """The xla frame with the chunk's color sum as shipped (the reference's
+    einsum, a batched matmul: pipeline._color_sum) and as a broadcast
+    product and sum over the chunk, which makes a (T, C, P, 3) tensor:
+    CUDA-event ms a frame in three turns of alternating order, and the two
+    images' largest difference."""
+    import torch
+    from fourdgs_torch.render import pipeline as TP
+
+    matmul = TP._color_sum
+
+    def broadcast(wgt, rgb):
+        return (wgt[..., None] * rgb[:, :, None, :]).sum(dim=1)
+
+    def frame(form):
+        def run():
+            TP._color_sum = form
+            try:
+                return render_exact(s_gpu, cam, cfg, LINEAR_T)
+            finally:
+                TP._color_sum = matmul
+        return run
+    img_m, img_b = frame(matmul)(), frame(broadcast)()
+    err = float((img_m - img_b).abs().max())
+    check(err <= 1e-5, f"{tag} xla color sum: the two forms differ by "
+          f"{err:.3e}")
+    del img_m, img_b
+    ms = turns_ms({"matmul": frame(matmul), "broadcast": frame(broadcast)},
+                  reps=3)
+    print(f"{tag} xla frame by its color sum (CUDA events, medians of three "
+          f"alternating turns of 3 frames): matmul (shipped) "
+          f"{ms['matmul']:.2f} ms, broadcast product and sum "
+          f"{ms['broadcast']:.2f} ms; images max |d| {err:.3e}")
+
+
+def lit_frame(s_cpu, s_gpu, dev, kernels):
+    """(s)'s lit frame: linear_scene at the viewer's default t = 0, 800x800,
+    under the viewer's pallas config with M = LINEAR_M_LIT, which truncates
+    no tile. Its binning equal on card and CPU; one frame's launches (K1
+    once); the image finite, lit, and within PARITY_MEAN / PARITY_MAX of the
+    dense renderer on the card; K1 against plain at the frame's inputs; a
+    grad step's launches (K1 and K8 once), its gradients finite and
+    nonzero, K8 against plain at its inputs, and K8 and plain each against
+    the plain version run in float64; frame and step timed with their peak
+    memory. Returns (results, launches)."""
+    import torch
+    from fourdgs_torch.core.camera import Camera
+    from fourdgs_torch.ops import composite_cuda
+    from fourdgs_torch.render import dense as TD
+    from fourdgs_torch.render import pipeline as TP
+
+    w, h = VIEWER_SIZES[0]
+    t = LINEAR_T_LIT
+    cfg = TP.RenderConfig(**dict(EXACT_CFGS[1][1],
+                                 max_splats_per_tile=LINEAR_M_LIT))
+    cam = Camera.create(**LINEAR_CAMERA, width=w, height=h, device=dev)
+    cam_cpu = Camera.create(**LINEAR_CAMERA, width=w, height=h, device="cpu")
+    label = f"{EXACT_CFGS[1][0]} M={LINEAR_M_LIT:,}"
+    tag = f"(s) lit {w}x{h} t={t:g}"
+    print(f"{tag}: " + exact_binning_check(
+        tag, s_cpu, cam_cpu, dev, ((cfg.tile_h, cfg.tile_w),), t)[0])
+    path = f"exact 4d, {label}, t={t:g}, {w}x{h}"
+    step = f"exact 4d grad step, {label}, t={t:g}, {w}x{h}"
+    for k in kernels.values():
+        k.launches = 0
+    img, aux = render_exact(s_gpu, cam, cfg, t, return_aux=True)
+    torch.cuda.synchronize()
+    launches = {path: {n: k.launches for n, k in kernels.items()}}
+    check(launches[path]["K1 composite"] == 1
+          and sum(launches[path].values()) == 1,
+          f"{tag}: launches {launches[path]}")
+    aux = {k: float(v) for k, v in aux.items()}
+    check(aux["overflowed"] == 0 and aux["max_tile_pairs"] <= LINEAR_M_LIT,
+          f"{tag}: a tile is truncated, aux {aux}")
+    mean_rgb = float(img[..., :3].mean())
+    lit = float((img[..., :3].amax(-1) > 0.01).float().mean())
+    check(tuple(img.shape) == (h, w, 4) and bool(torch.isfinite(img).all())
+          and mean_rgb > 1e-3,
+          f"{tag}: frame not finite or black (mean rgb {mean_rgb:.3e})")
+    t0 = time.time()
+    want = TD.render_splats4d(s_gpu, cam, t)
+    torch.cuda.synchronize()
+    dense_s = time.time() - t0
+    d = (img - want).abs()
+    mean_d, max_d = float(d.mean()), float(d.max())
+    check(mean_d < PARITY_MEAN and max_d < PARITY_MAX,
+          f"{tag} against the dense renderer: mean |d| {mean_d:.3e}, max "
+          f"|d| {max_d:.3e}")
+    del img, want, d
+    med, times, peak = _timed_ms(lambda: render_exact(s_gpu, cam, cfg, t),
+                                 TIMED_FRAMES_EXACT)
+    print(f"{tag} {label}: mean rgb {mean_rgb:.5f}, {lit:.4f} of pixels "
+          f"above 0.01; against the dense renderer on the card ({dense_s:.1f}"
+          f" s) mean |d| {mean_d:.3e}, max |d| {max_d:.3e}; median {med:.2f}"
+          f" ms over {TIMED_FRAMES_EXACT} frames "
+          f"[{', '.join(f'{x:.2f}' for x in times)}]; peak memory "
+          f"{peak:.2f} GiB; aux {json.dumps(aux)}; launches per frame "
+          f"{json.dumps(launches[path])}")
+    cap = capture_calls(lambda: render_exact(s_gpu, cam, cfg, t),
+                        [(TP, "composite_records")])
+    results = {path: {"K1 composite": phase_composite(
+        f"{tag} {label}", cap["pipeline.composite_records"])}}
+    del cap
+    torch.cuda.empty_cache()
+
+    for k in kernels.values():
+        k.launches = 0
+    grads = {}
+    cap = capture_calls(
+        lambda: grads.update(exact_grad_step(s_gpu, cam, cfg, t)),
+        [(composite_cuda, "composite_records_bwd")])
+    torch.cuda.synchronize()
+    launches[step] = {n: k.launches for n, k in kernels.items()}
+    check(launches[step]["K1 composite"] == 1
+          and launches[step]["K8 composite_bwd"] == 1
+          and sum(launches[step].values()) == 2,
+          f"{tag} grad step: launches {launches[step]}")
+    for k, g in grads.items():
+        check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+              f"{tag} grad step: gradient of {k} not finite or zero")
+    results[step] = phase_backward_kernels(
+        f"{tag} {label} grad step",
+        cap["composite_cuda.composite_records_bwd"], [])
+    # K8 and its plain version against the plain version in float64 (its
+    # forward too) at the same inputs: both within BWD_TOL of each field's
+    # max, so that K8 is as close to the exact result as the plain version.
+    (records, counts, sel, kx, ky, carry, fout, g), _ = cap[
+        "composite_cuda.composite_records_bwd"][0]
+    got = composite_cuda.composite_records_bwd(records, counts, sel, kx, ky,
+                                               carry, fout, g)
+    plain = composite_cuda.composite_bwd_plain(records, counts, kx, ky,
+                                               carry, fout, g)
+    del cap, grads, fout
+    f64 = [x.double() for x in (records, kx, ky, carry, g)]
+    del records
+    fout64 = composite_cuda.composite_plain(f64[0], counts, *f64[1:4])
+    exact = composite_cuda.composite_bwd_plain(f64[0], counts, *f64[1:4],
+                                               fout64, f64[4])
+    del f64, fout64
+    n = composite_cuda.N_FIELDS
+    k8_rel = _field_err(got[:, :n], exact[:, :n], 1)[0]
+    plain_rel = _field_err(plain[:, :n], exact[:, :n], 1)[0]
+    check(k8_rel <= BWD_TOL and plain_rel <= BWD_TOL,
+          f"{tag} grad step against float64: K8 {k8_rel:.3e}, plain "
+          f"{plain_rel:.3e} of a field's max > {BWD_TOL:g}")
+    print(f"{tag} {label} grad step, against the plain version in float64 "
+          f"(forward and backward): K8 {k8_rel:.3e}, the plain version "
+          f"{plain_rel:.3e} of a field's max |d|")
+    del got, plain, exact
+    torch.cuda.empty_cache()
+    med, times, peak = _timed_ms(
+        lambda: exact_grad_step(s_gpu, cam, cfg, t), 3)
+    print(f"{tag} {label} grad step: forward + backward median {med:.2f} ms"
+          f" over 3 steps [{', '.join(f'{x:.2f}' for x in times)}]; peak "
+          f"memory {peak:.2f} GiB; launches per step "
+          f"{json.dumps(launches[step])}; every gradient finite and nonzero")
+    torch.cuda.empty_cache()
+    return results, launches
+
+
 def build_kernels(kernels):
     """Build every kernel: one nvcc per source file, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2540,6 +3245,16 @@ def main() -> int:
     # (q) pack_rows and its backward, the public row pack.
     pack_path = "pack_rows and its backward"
     results[pack_path], launches[pack_path] = phase_pack_rows(dev, kernels)
+    del params
+    torch.cuda.empty_cache()
+
+    # The exact-order paths: (r) the 20K-splat frames of render_splats4d,
+    # 3d and 2d, card against CPU; (s) the viewer's full-width frame.
+    for phase in (phase_exact_small, phase_exact_full):
+        res, lau = phase(dev, kernels)
+        results.update(res)
+        launches.update(lau)
+        torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": [
         dict(name=f"{name} [{path}]", path=path, route="cuda",

@@ -8,12 +8,15 @@ has a plain PyTorch version in the same module: a wrapper given a CPU tensor
 runs that version, a wrapper given a CUDA tensor launches the kernel.
 
 Entry points that make tensors (`Camera.create`, `build_cube_scene`,
-`params4d_from_numpy`, `tile_pixel_ndc`) make them on `default_device()`, the
-card, unless the caller names a device; CPU callers pass `device="cpu"`.
+`params4d_from_numpy`, `params4d_from_arrays`, `tile_pixel_ndc`, the splat
+makers of `splats.gaussians`) make them on `default_device()`, the card,
+unless the caller names a device or hands them tensors; CPU callers pass
+`device="cpu"`.
 
 This package never imports JAX.
 """
 
+import numpy as np
 import torch
 
 
@@ -27,3 +30,33 @@ def default_device() -> torch.device:
 def resolve_device(device=None) -> torch.device:
     """`device`, or default_device() for None."""
     return default_device() if device is None else torch.device(device)
+
+
+def as_tensors(*xs, device=None):
+    """The inputs of a tensor maker as tensors. With `device`, all on it.
+    Without, tensors stay where they are, and numpy arrays, lists and
+    scalars become float32 tensors (as the reference's `jnp.asarray` makes
+    them) on the device of the first tensor among the inputs, or on
+    default_device() when none is a tensor."""
+    if device is None:
+        home = next((x.device for x in xs if isinstance(x, torch.Tensor)),
+                    None) or default_device()
+    else:
+        home = torch.device(device)
+    return tuple(
+        (x if device is None else x.to(home)) if isinstance(x, torch.Tensor)
+        else torch.from_numpy(np.array(x, np.float32)).to(home)
+        for x in xs)
+
+
+def __getattr__(name):
+    # Lazy, as in the reference: importing the package pulls in no render
+    # module.
+    if name in ("RenderConfig", "render_splats4d", "render_splats3d",
+                "render_splats2d", "render_params4d_packed"):
+        from fourdgs_torch.render import pipeline
+        return getattr(pipeline, name)
+    if name == "auto_render_config":
+        from fourdgs_torch.render.autoconfig import auto_render_config
+        return auto_render_config
+    raise AttributeError(name)

@@ -9,10 +9,12 @@ device, in the reference's order of operations.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
 from fourdgs_torch import resolve_device
+from fourdgs_torch.core.transforms import rotate_about_axis
 
 
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -92,3 +94,61 @@ class Camera:
         aspect = torch.tensor(self.aspect, dtype=torch.float32,
                               device=self.device)
         return perspective(fov, aspect, self.near, self.far)
+
+    def view_proj_matrix(self) -> torch.Tensor:
+        return self.proj_matrix() @ self.view_matrix()
+
+    def _f32(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=self.position.dtype,
+                               device=self.device)
+
+    def viewport(self) -> torch.Tensor:
+        """normalize(vec2(w, h))."""
+        v = self._f32([self.width, self.height])
+        return v / torch.linalg.vector_norm(v)
+
+    def focal(self) -> torch.Tensor:
+        """(w, h) / (2 tan(fov / 2)), fov in radians (the mathematically
+        intended value; the reference's shaders never read it)."""
+        d = 2.0 * torch.tan(torch.deg2rad(self.fov_deg) * 0.5)
+        return self._f32([self.width, self.height]) / d
+
+    def with_pose(self, position=None, orientation=None,
+                  up=None) -> "Camera":
+        return dataclasses.replace(
+            self,
+            position=self.position if position is None
+            else self._f32(position),
+            orientation=self.orientation if orientation is None
+            else self._f32(orientation),
+            up=self.up if up is None else self._f32(up))
+
+    def moved(self, delta) -> "Camera":
+        """Translate along world axes."""
+        return dataclasses.replace(self,
+                                   position=self.position + self._f32(delta))
+
+    def orbit(self, angle_rad, axis=(0.0, 1.0, 0.0),
+              center=(0.0, 0.0, 0.0)) -> "Camera":
+        """Rotate the camera position about `axis` through `center`, looking
+        at `center` (the fixed-view-point mode)."""
+        c = self._f32(center)
+        p = rotate_about_axis(self.position - c, self._f32(angle_rad),
+                              self._f32(axis)) + c
+        return dataclasses.replace(self, position=p,
+                                   orientation=_normalize(c - p))
+
+
+def pixel_centers_ndc(width: int, height: int, device=None,
+                      dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NDC coordinates of pixel centers for an image with row 0 at the top:
+    (px, py), each (H, W), on `device` (None: the card,
+    fourdgs_torch.default_device)."""
+    device = resolve_device(device)
+    xs = (torch.arange(width, dtype=dtype, device=device) + 0.5) \
+        / width * 2.0 - 1.0
+    ys = 1.0 - (torch.arange(height, dtype=dtype, device=device) + 0.5) \
+        / height * 2.0
+    px = torch.broadcast_to(xs[None, :], (height, width))
+    py = torch.broadcast_to(ys[:, None], (height, width))
+    return px, py

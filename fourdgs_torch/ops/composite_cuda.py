@@ -1,7 +1,8 @@
 """Per-tile ordered alpha compositing over packed splat records (port of
 fourdgs/ops/composite_pallas.py: `record_fields` (with `pad_to`, through the
 pack kernel K4), `pack_records` without pack8, `identity_carry`,
-`composite_records`, `composite_records_at`, and their custom VJPs).
+`composite_records`, `composite_records_at`, their custom VJPs, and
+`composite_tiles_pallas`, the tile-list form of the composite).
 
 Kernels K1 (`csrc/composite.cu`, the forward) and K8
 (`csrc/composite_bwd.cu`, the backward), each with its plain PyTorch
@@ -547,3 +548,29 @@ def composite_records_at(records_sel: torch.Tensor, counts_sel: torch.Tensor,
         raise ValueError("carry_full must be contiguous (updated in place)")
     return _CompositeAt.apply(records_sel, counts_sel, sel, kx_full, ky_full,
                               carry_full)
+
+
+def composite_tiles_pallas(proj, tile_splat: torch.Tensor,
+                           tile_live: torch.Tensor, px: torch.Tensor,
+                           py: torch.Tensor, p00, p11,
+                           background: torch.Tensor, cfg) -> torch.Tensor:
+    """Drop-in for the plain-array tiled compositor
+    (render.pipeline._composite_tiles_xla) through K1: per-tile splat lists
+    tile_splat / tile_live (T, M), pixel coordinates px, py (T, P) with P =
+    cfg.tile_h * cfg.tile_w a multiple of 128 -> (T, P, 4) over
+    `background`. Differentiable through K8."""
+    t_tiles, p = px.shape
+    if p != cfg.tile_h * cfg.tile_w or p % 128:
+        raise ValueError(f"the composite kernel needs tile_h * tile_w = P, a "
+                         f"multiple of 128; got P = {p} for "
+                         f"{cfg.tile_h}x{cfg.tile_w}")
+    records = pack_records(proj, tile_splat, tile_live, p00, p11)
+    counts = tile_live.sum(dim=1, dtype=torch.int32)
+    kx = (px / p00).reshape(t_tiles, 1, p)
+    ky = (py / p11).reshape(t_tiles, 1, p)
+    out = composite_records(records, counts, kx, ky,
+                            identity_carry(t_tiles, p, device=px.device,
+                                           dtype=px.dtype))
+    rgb = out[:, 0:3, :] + out[:, 4:5, :] * background[:3, None]
+    a = out[:, 3, :] + out[:, 4, :] * background[3]
+    return torch.cat([rgb, a[:, None, :]], dim=1).permute(0, 2, 1)

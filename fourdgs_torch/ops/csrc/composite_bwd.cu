@@ -21,12 +21,20 @@
 //   d alpha_i = (g_C . c_i) T_i + g_A 2 alpha_i T_i - num_i / (1 - alpha_i),
 //   num_i = g_C . (C_tot - C_incl_i) + g_A (A_tot - A_incl_i) + g_T T_fin,
 // the suffix sums taken as the saved totals minus the inclusive prefix
-// (started at the carry), as the reference does. Here the prefix is kept
-// already contracted with g: rem = num_i is one running float per pixel,
-// started at g . (fout - carry) + g_T T_fin and lowered by each record's
-// contribution. d alpha is gated by cover & (a_eff w < 1 - 1e-6) (the
-// alpha clamp), then chained through w = exp(-32 (n0^2 + n1^2)) to the
-// record fields, exactly the reference's expressions.
+// (started at the carry), as the reference does. Here the suffix is kept
+// contracted with g: rem = num_i is one running float per pixel, lowered by
+// each record's contribution within a chunk and set anew at each chunk's
+// start to g . (fout - pref) + g_T T_fin, where pref (rows r, g, b, a, in
+// shared memory) is the forward's accumulator rebuilt as K1 builds it: the
+// carry, plus each chunk's sums taken in K1's order and added at the
+// chunk's end. fout holds K1's rounding of those sums, so the suffix that
+// fout - pref leaves is the forward's own; a remainder run down from
+// g . (fout - carry) over the whole tile instead drifts from it by the
+// forward's rounding, which 1 / (1 - alpha) (up to 1e6) magnifies at the
+// records of a deep tile, where alpha is near 1 and the true suffix near
+// 0. d alpha is gated by cover & (a_eff w < 1 - 1e-6) (the alpha clamp),
+// then chained through w = exp(-32 (n0^2 + n1^2)) to the record fields,
+// exactly the reference's expressions.
 //
 // The early exit must fall on the same chunk as the forward's (K1), so the
 // transmittance is recomputed with K1's sequential product in K1's order:
@@ -48,9 +56,9 @@
 // warp-uniform ballot list, each record whose cull box misses them (it
 // contributes exact zeros there and issues no shuffle); the covered path
 // stays a branch (computing it for every pixel, as K1 does, was
-// slower); the cotangent rows of the tile stay in shared memory, which holds
-// the kernel to 128 registers, two blocks an SM. A thread sums its own
-// pixels in registers; a warp with a covered pixel then reduces the 10 sums
+// slower); the cotangent rows and the rebuilt prefix of the tile stay in
+// shared memory, out of the registers. A thread sums its own pixels in
+// registers; a warp with a covered pixel then reduces the 10 sums
 // by a reduce-scatter of xor shuffles (12 shuffles, each field's sum ending
 // in two lanes; a tree of 50 did it before), added in the same pairs as a
 // shfl_down tree. Each warp writes one partial per (field, record) to shared
@@ -69,10 +77,12 @@ namespace {
 using composite_walk::kChunk;
 using composite_walk::kFields;
 using composite_walk::kHitWords;
-// At most 8 pixels a thread at <= 128 registers: at P = 2048, two blocks of
-// 256 threads an SM.
+// At most 8 pixels a thread, at <= 128 registers, except at P = 2048: there
+// the shared memory (116 KB with the prefix rows) admits one block of 256
+// threads an SM, which may then take the registers of two. (At P = 4096,
+// 512 threads of 8 pixels, 128 is the most a thread can have.)
 template <int P>
-using Shape = composite_walk::Shape<P, 8, 128>;
+using Shape = composite_walk::Shape<P, 8, P == 2048 ? 255 : 128>;
 constexpr unsigned kFull = 0xffffffffu;
 
 // The warp's sums of the ten per-lane values d[0..9], scattered: returns
@@ -127,14 +137,16 @@ composite_bwd_kernel(const float* __restrict__ rec,
   constexpr int PPT = Shape<P>::kPpt;
   constexpr int WARPS = Shape<P>::kWarps;
   // Dynamic shared memory: the staged chunks [2][kFields][kChunk], the
-  // boxes [kChunk], the warps' partials [WARPS][kFields][kChunk], and the
+  // boxes [kChunk], the warps' partials [WARPS][kFields][kChunk], the
   // cotangent rows r, g, b, a of the tile [4][P] (read by covered pixels
-  // only, so they stay out of the registers).
+  // only, so they stay out of the registers), and the forward's prefix
+  // rows r, g, b, a [4][P] (each pixel's read and written by its thread).
   extern __shared__ __align__(16) float smem[];
   float* s_rec = smem;
   float4* s_box = reinterpret_cast<float4*>(smem + 2 * kFields * kChunk);
   float* s_part = reinterpret_cast<float*>(s_box + kChunk);
   float* s_g = s_part + WARPS * kFields * kChunk;
+  float* s_pref = s_g + 4 * P;
   __shared__ int s_first;
   const int b = order != nullptr ? static_cast<int>(order[blockIdx.x])
                                  : static_cast<int>(blockIdx.x);
@@ -174,11 +186,8 @@ composite_bwd_kernel(const float* __restrict__ rec,
     s_g[1 * P + p] = gg;
     s_g[2 * P + p] = gb;
     s_g[3 * P + p] = ga;
-    rem[j] = gr * (fout_b[0 * P + p] - carry_b[0 * P + p])
-        + gg * (fout_b[1 * P + p] - carry_b[1 * P + p])
-        + gb * (fout_b[2 * P + p] - carry_b[2 * P + p])
-        + ga * (fout_b[3 * P + p] - carry_b[3 * P + p])
-        + g_t[4 * P + p] * fout_b[4 * P + p];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) s_pref[f * P + p] = carry_b[f * P + p];
     trans[j] = carry_b[4 * P + p];
   }
   const composite_walk::Patch patch =
@@ -198,6 +207,17 @@ composite_bwd_kernel(const float* __restrict__ rec,
           s_rec + ((c + 1) & 1) * kFields * kChunk, rec_b, c + 1, m, vec);
     }
     composite_walk::chunk_boxes(sr_c, s_box);
+    // The suffix at the chunk's start, from the forward's totals and its
+    // prefix so far (both K1's roundings).
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      const int p = p0 + j * pstep;
+      rem[j] = s_g[0 * P + p] * (fout_b[0 * P + p] - s_pref[0 * P + p])
+          + s_g[1 * P + p] * (fout_b[1 * P + p] - s_pref[1 * P + p])
+          + s_g[2 * P + p] * (fout_b[2 * P + p] - s_pref[2 * P + p])
+          + s_g[3 * P + p] * (fout_b[3 * P + p] - s_pref[3 * P + p])
+          + g_t[4 * P + p] * fout_b[4 * P + p];
+    }
     __syncthreads();
     unsigned hits[kHitWords];
     composite_walk::warp_hits(s_box, patch, kChunk, hits);
@@ -212,9 +232,13 @@ composite_bwd_kernel(const float* __restrict__ rec,
       }
     }
 
-    float cp[PPT];
+    // cp and the chunk's sums sr, sg, sb, sa as K1 takes them.
+    float cp[PPT], sr[PPT], sg[PPT], sb[PPT], sa[PPT];
 #pragma unroll
-    for (int j = 0; j < PPT; ++j) cp[j] = 1.0f;
+    for (int j = 0; j < PPT; ++j) {
+      cp[j] = 1.0f;
+      sr[j] = sg[j] = sb[j] = sa[j] = 0.0f;
+    }
     int base = 0, k;
     while (composite_walk::next_hit(hits, base, k)) {
       const float sx = sr_c[0 * kChunk + k], sy = sr_c[1 * kChunk + k];
@@ -248,6 +272,10 @@ composite_bwd_kernel(const float* __restrict__ rec,
         const float wgt = alpha * t_i;
         const float gc = gr * cr + gg * cg + gb * cb;
         rem[j] = rem[j] - (wgt * gc + ga * (alpha * wgt));
+        sr[j] = sr[j] + wgt * cr;
+        sg[j] = sg[j] + wgt * cg;
+        sb[j] = sb[j] + wgt * cb;
+        sa[j] = sa[j] + alpha * wgt;
         const float one_m = 1.0f - alpha;
         d[6] += gr * wgt;
         d[7] += gg * wgt;
@@ -277,7 +305,14 @@ composite_bwd_kernel(const float* __restrict__ rec,
       }
     }
 #pragma unroll
-    for (int j = 0; j < PPT; ++j) trans[j] = trans[j] * cp[j];
+    for (int j = 0; j < PPT; ++j) {
+      const int p = p0 + j * pstep;
+      s_pref[0 * P + p] += sr[j];
+      s_pref[1 * P + p] += sg[j];
+      s_pref[2 * P + p] += sb[j];
+      s_pref[3 * P + p] += sa[j];
+      trans[j] = trans[j] * cp[j];
+    }
     __syncthreads();
 
     for (int i = threadIdx.x; i < kFields * kChunk; i += THREADS) {
@@ -299,7 +334,7 @@ int launch(const float* rec, const int* counts, const int* sel,
            const float* carry, const float* fout, const float* g, float* drec,
            int n_blocks, int f_stride, int m, bool vec, cudaStream_t stream) {
   constexpr int kSmem = (2 * kFields * kChunk + 4 * kChunk
-                         + Shape<P>::kWarps * kFields * kChunk + 4 * P)
+                         + Shape<P>::kWarps * kFields * kChunk + 8 * P)
       * static_cast<int>(sizeof(float));
   const cudaError_t err = cudaFuncSetAttribute(
       composite_bwd_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,

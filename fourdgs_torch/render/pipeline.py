@@ -1,29 +1,40 @@
 """The tiled render pipeline: project -> bin -> sort -> composite (port of
-fourdgs/render/pipeline.py, quantized-depth branch with the hand-written
-kernels): the exact head with progressive deepening (`tail_mode="off"`) or,
-converged, one head pass plus the streaming banded-OIT tail over every
-other pair (`tail_mode="banded"`). An image of 2047 tiles or more (4K at
-16x128 tiles) renders as bands of tile rows, each band through the whole
-path with band-relative tile ids. `sort_backend="pallas"` sorts the pairs
-with the merge kernels (K11-K13) and applies the depth prune as its own pass
-(K10).
+fourdgs/render/pipeline.py).
 
-`RenderConfig` keeps every field name and default of the reference, so a
-reference config converts with `RenderConfig(**dataclasses.asdict(cfg))`.
-`backend="pallas"` names the hand-written kernels (here CUDA). What is not
-ported yet raises NotImplementedError: the XLA-backend composite, the exact
-sort and the tail's within-band weighting knobs.
+Two orderings, as in the reference:
+* exact (`quantized_depth_sort=False`, the default): the splats are put in
+  front-to-back order and the pairs sorted by (tile, splat index); the
+  composite takes each tile's nearest `max_splats_per_tile` pairs, and with
+  `backend="pallas"` progressive deepening may take more;
+* quantized (the 10M+ fast path): the exact head with progressive deepening
+  (`tail_mode="off"`) or, converged, one head pass plus the streaming
+  banded-OIT tail over every other pair (`tail_mode="banded"`). An image of
+  2047 tiles or more (4K at 16x128 tiles) renders as bands of tile rows,
+  each band through the whole path with band-relative tile ids.
+  `sort_backend="pallas"` sorts the pairs with the merge kernels (K11-K13)
+  and applies the depth prune as its own pass (K10).
 
-The frame is differentiable with respect to the packed params in both
-modes: the composite (K1/K8), the tail (K7/K9) and the record pack (K4) are
-autograd Functions with the reference's VJPs, and the binning, meta and
-bands are integers that carry no gradient, as in the reference.
+Two composite backends: `backend="pallas"` names the hand-written kernels
+(here CUDA: K1, K8); `backend="xla"` is the reference's plain-array
+compositor (`_composite_tiles_xla`), which here is plain PyTorch on whatever
+device the splats are on. `RenderConfig` keeps every field name and default
+of the reference, so a reference config converts with
+`RenderConfig(**dataclasses.asdict(cfg))`. The tail's within-band weighting
+(`tail_depth_beta`) is not ported yet and raises NotImplementedError.
+
+The entry points are `render_splats4d`, `render_splats3d`, `render_splats2d`
+(the dataclass splats of splats/gaussians.py) and `render_params4d_packed`
+(the packed scalar-SoA parameters of splats/packed.py). Every one is
+differentiable with respect to its splats: the composite (K1/K8), the tail
+(K7/K9) and the record pack (K4) are autograd Functions with the
+reference's VJPs, the xla backend is plain autograd, and the binning, meta
+and bands are integers that carry no gradient, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,16 +48,20 @@ from fourdgs_torch.ops.composite_cuda import (composite_records,
                                               record_fields)
 from fourdgs_torch.ops.lookup_cuda import sample_blocks
 from fourdgs_torch.ops.sort_cuda import DEAD
-from fourdgs_torch.render.project import Projected, project_components
-from fourdgs_torch.render.tiles import (TILE_LIMIT, assemble_image,
-                                        bin_splats, clip_to_tile_row_band,
+from fourdgs_torch.render.project import (Projected, project_components,
+                                          project_splats)
+from fourdgs_torch.render.sort import front_to_back_order
+from fourdgs_torch.render.tiles import (TILE_H, TILE_LIMIT, TILE_W,
+                                        assemble_image, bin_splats,
+                                        clip_to_tile_row_band,
                                         quantized_depth_bits,
                                         splat_tile_bbox, tile_grid,
                                         tile_pixel_ndc)
 from fourdgs_torch.splats import packed as PK
+from fourdgs_torch.splats.gaussians import (Splats2D, Splats3D, Splats4D,
+                                            mean_in_time_sortkey)
 
-TILE_H = 32
-TILE_W = 32
+ALPHA_MAX = 1.0 - 1e-6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,26 +109,118 @@ def _gather_pair_rows(pair_padded: torch.Tensor, starts: torch.Tensor,
     return pair_padded[idx]
 
 
+def _gather_tile_lists(binning, cfg: RenderConfig):
+    """Fixed-capacity per-tile splat lists from the CSR pair arrays:
+    (tile_splat (T, M) int32, tile_live (T, M) bool), M =
+    max_splats_per_tile. A tile of more than M pairs keeps its M nearest,
+    the right direction of truncation for a front-to-back composite."""
+    m = cfg.max_splats_per_tile
+    starts = binning.tile_start[:-1]
+    counts = binning.tile_start[1:] - starts
+    tile_splat = _gather_pair_rows(_pad_pairs(binning.pair_splat, m),
+                                   starts, m)
+    live = torch.arange(m, device=starts.device)[None, :] < counts[:, None]
+    return tile_splat, live
+
+
+def _color_sum(wgt: torch.Tensor, rgb: torch.Tensor) -> torch.Tensor:
+    """sum_c wgt[t, c, p] rgb[t, c, :] -> (T, P, 3), as the reference's
+    einsum: a batched matmul, float32 on the card while the caller leaves
+    TF32 off for matmuls (PyTorch's default)."""
+    return torch.einsum("tcp,tcd->tpd", wgt, rgb)
+
+
+def _composite_tiles_xla(proj: Projected, tile_splat: torch.Tensor,
+                         tile_live: torch.Tensor, px: torch.Tensor,
+                         py: torch.Tensor, p00, p11,
+                         background: torch.Tensor, chunk: int,
+                         return_resid: bool = False):
+    """The reference's plain-array per-tile ordered composite (its
+    `backend="xla"`), in plain PyTorch: no kernel, on any device.
+
+    tile_splat (T, M) indexes the proj fields; px, py (T, P) are the NDC
+    pixel coordinates. A loop over M in chunks carries each pixel's running
+    log-transmittance; within a chunk the ordered blend is an exclusive
+    cumsum. Each chunk makes (T, chunk, P) temporaries, which autograd keeps
+    for the backward. Returns the (T, P, 4) tiles, and with return_resid
+    also the final transmittance (T, P)."""
+    t_tiles, m = tile_splat.shape
+    p = px.shape[1]
+    dtype = px.dtype
+    n_chunks = -(-m // chunk)
+    pad = n_chunks * chunk - m
+    if pad:
+        tile_splat = torch.cat([tile_splat,
+                                tile_splat.new_zeros((t_tiles, pad))], dim=1)
+        tile_live = torch.cat([tile_live,
+                               tile_live.new_zeros((t_tiles, pad))], dim=1)
+    a_eff = proj.opacity * proj.a * proj.valid.to(dtype)
+    rgb_acc = px.new_zeros((t_tiles, p, 3))
+    a_acc = px.new_zeros((t_tiles, p))
+    log_t = px.new_zeros((t_tiles, p))
+    for c in range(n_chunks):
+        sidx = tile_splat[:, c * chunk:(c + 1) * chunk].long()   # (T, C)
+        live = tile_live[:, c * chunk:(c + 1) * chunk]
+
+        def take(f):
+            return f[sidx][..., None]                            # (T, C, 1)
+        dx = (px[:, None, :] - take(proj.mx)) / p00              # (T, C, P)
+        dy = (py[:, None, :] - take(proj.my)) / p11
+        v0x, v0y = take(proj.v0x), take(proj.v0y)
+        k0 = v0x * dx + v0y * dy
+        k1 = v0y * dx - v0x * dy
+        n0 = k0 / take(proj.l0)
+        n1 = k1 / take(proj.l1)
+        q = 64.0 * (n0 * n0 + n1 * n1)
+        w = torch.exp(-0.5 * q)
+        cover = (torch.abs(n0) <= 0.5) & (torch.abs(n1) <= 0.5) & (w >= 1e-4)
+        gate = (cover & live[..., None]).to(dtype)
+        alpha = torch.clamp(take(a_eff) * w * gate, 0.0, ALPHA_MAX)
+        log1m = torch.log1p(-alpha)
+        t_excl = torch.exp(log_t[:, None, :] + torch.cumsum(log1m, dim=1)
+                           - log1m)
+        wgt = alpha * t_excl
+        rgb = torch.stack([proj.r[sidx], proj.g[sidx], proj.b[sidx]],
+                          dim=-1)                                # (T, C, 3)
+        rgb_acc = rgb_acc + _color_sum(wgt, rgb)
+        a_acc = a_acc + (alpha * wgt).sum(dim=1)
+        log_t = log_t + log1m.sum(dim=1)
+    t_fin = torch.exp(log_t)
+    rgb_acc = rgb_acc + t_fin[..., None] * background[:3]
+    a_acc = a_acc + t_fin * background[3]
+    tiles = torch.cat([rgb_acc, a_acc[..., None]], dim=-1)
+    if return_resid:
+        return tiles, t_fin
+    return tiles
+
+
 def render_projected(proj: Projected, camera: Camera,
                      cfg: RenderConfig = RenderConfig(),
-                     return_aux: bool = False):
+                     p00=None, p11=None, return_aux: bool = False):
     """Tile-binned render of already-projected splats. Returns the (H, W, 4)
     image, or (image, aux) with return_aux: aux holds the binning health
     counters (pair-budget overflow, compaction drops, prune under-keep, live
-    pairs, deepest tile) and the truncation residual, as 0-d tensors."""
-    if cfg.backend != "pallas" or not cfg.quantized_depth_sort:
-        raise NotImplementedError(
-            "only backend='pallas' with quantized_depth_sort is ported yet "
-            "(ROADMAP.md Queue A, item 9)")
+    pairs, deepest tile) and the truncation residual, as 0-d tensors.
+
+    p00 / p11 override the projection diagonal for a path whose pixel -> k
+    mapping is not the camera's (the 2D screen-space scene)."""
+    if cfg.backend not in ("xla", "pallas"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
     if cfg.tail_mode not in ("off", "banded"):
         raise ValueError(f"unknown tail_mode {cfg.tail_mode!r}")
-    pmat = camera.proj_matrix()
-    p00, p11 = pmat[0, 0], pmat[1, 1]
+    if p00 is None:
+        pmat = camera.proj_matrix()
+        p00, p11 = pmat[0, 0], pmat[1, 1]
     w, h = camera.width, camera.height
+    use_quant = cfg.quantized_depth_sort
+    if not use_quant:
+        with record_function("fourdgs::depth_order"):
+            order = front_to_back_order(proj.depth)
+            proj = proj.map(lambda a: a[order])
     # Tile-row banding: the quantized key packs an 11-bit tile id, so an
     # image of 2047 tiles or more renders as ceil-split bands of tile rows.
     ny0, nx0 = tile_grid(w, h, cfg.tile_h, cfg.tile_w)
-    if ny0 * nx0 >= TILE_LIMIT:
+    if use_quant and ny0 * nx0 >= TILE_LIMIT:
         rows_per_band = max(1, TILE_LIMIT // nx0)
         n_bands = -(-ny0 // rows_per_band)
     else:
@@ -132,7 +239,7 @@ def render_projected(proj: Projected, camera: Camera,
             binning = bin_splats(
                 proj, p00, p11, w, h, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
                 max_tiles_per_splat=cfg.max_tiles_per_splat,
-                quantized_depth=True,
+                quantized_depth=use_quant,
                 compact_keep_cols=cfg.sort_compact_keep_cols,
                 big_splat_budget=cfg.big_splat_budget,
                 big_splat_keep_cols=cfg.big_splat_keep_cols,
@@ -144,16 +251,29 @@ def render_projected(proj: Projected, camera: Camera,
                 head_cap=(cfg.max_splats_per_tile
                           if cfg.tail_mode == "banded" else 0),
                 tile_row_band=band)
+        px_b = px[lo_row * nx0:(lo_row + nb) * nx0]
+        py_b = py[lo_row * nx0:(lo_row + nb) * nx0]
+        counts = binning.tile_start[1:] - binning.tile_start[:-1]
         with record_function("fourdgs::composite"):
-            tiles, resid = _composite_pallas_progressive(
-                proj, binning, px[lo_row * nx0:(lo_row + nb) * nx0],
-                py[lo_row * nx0:(lo_row + nb) * nx0], p00, p11, bg, cfg,
-                image_size=(w, h), tile_row_band=band)
+            if cfg.backend == "pallas":
+                tiles, resid = _composite_pallas_progressive(
+                    proj, binning, px_b, py_b, p00, p11, bg, cfg,
+                    image_size=(w, h), tile_row_band=band)
+            else:
+                tile_splat, tile_live = _gather_tile_lists(binning, cfg)
+                tiles, t_fin = _composite_tiles_xla(
+                    proj, tile_splat, tile_live, px_b, py_b, p00, p11, bg,
+                    cfg.splat_chunk, return_resid=True)
+                truncated = counts > cfg.max_splats_per_tile
+                if binning.tile_pruned is not None:
+                    # Pairs dropped by the depth prune are truncation error
+                    # too, even where the kept list fits the capacity.
+                    truncated = truncated | binning.tile_pruned
+                resid = t_fin.detach() * truncated[:, None]
         band_tiles.append(tiles)
         band_resid.append(resid.max())
         binnings.append(binning)
-        band_max_pairs.append(
-            (binning.tile_start[1:] - binning.tile_start[:-1]).max())
+        band_max_pairs.append(counts.max())
     tiles = band_tiles[0] if n_bands == 1 else torch.cat(band_tiles)
     img = assemble_image(tiles, w, h, cfg.tile_h, cfg.tile_w)
     if not return_aux:
@@ -362,9 +482,9 @@ def _apply_banded_tail(out, proj: Projected, binning, p00, p11,
 
 
 def project_params4d(params: Dict[str, torch.Tensor], camera: Camera,
-                     t: float, min_opacity: float = 0.0) -> Projected:
+                     t, min_opacity: float = 0.0) -> Projected:
     """Covariance construction, temporal slice and EWA projection of the
-    packed parameter dict."""
+    packed parameter dict at time t (a Python float or a 0-d tensor)."""
     cov4 = PK.cov4_motion(params)
     mx, my, mz, cov3, opacity, sort_mean = PK.slice4d(params, cov4, t,
                                                       min_opacity)
@@ -374,7 +494,7 @@ def project_params4d(params: Dict[str, torch.Tensor], camera: Camera,
 
 
 def render_params4d_packed(params: Dict[str, torch.Tensor], camera: Camera,
-                           t: float, min_opacity: float = 0.0,
+                           t, min_opacity: float = 0.0,
                            cfg: RenderConfig = RenderConfig(),
                            return_aux: bool = False):
     """The flagship path on the packed scalar-SoA parameterization: `params`
@@ -383,3 +503,52 @@ def render_params4d_packed(params: Dict[str, torch.Tensor], camera: Camera,
     with record_function("fourdgs::project"):
         proj = project_params4d(params, camera, t, min_opacity)
     return render_projected(proj, camera, cfg, return_aux=return_aux)
+
+
+# ---------------------------------------------------------------------------
+# entry points of the dataclass splats (render/dense.py's signatures)
+# ---------------------------------------------------------------------------
+
+def render_splats3d(splats: Splats3D, camera: Camera,
+                    opacity: Optional[torch.Tensor] = None,
+                    sort_mean3: Optional[torch.Tensor] = None,
+                    cfg: RenderConfig = RenderConfig(),
+                    return_aux: bool = False):
+    """Tiled render of 3D splats, with an optional per-splat opacity (a
+    sliced 4D scene) and sorting position."""
+    op = (torch.ones((splats.count,), dtype=splats.position.dtype,
+                     device=splats.position.device)
+          if opacity is None else opacity)
+    with record_function("fourdgs::project"):
+        proj = project_splats(splats.position, splats.cov, splats.color, op,
+                              camera, sort_mean3=sort_mean3)
+    return render_projected(proj, camera, cfg, return_aux=return_aux)
+
+
+def render_splats2d(splats: Splats2D, camera: Camera,
+                    cfg: RenderConfig = RenderConfig(),
+                    return_aux: bool = False):
+    """Tiled render of the 2D screen-space workload. The 2D scene draws its
+    splats unsorted, in index order; that order is expressed as depth keys
+    (the index), so the pipeline's front-to-back reversal applies
+    unchanged."""
+    from fourdgs_torch.render.dense import project_splats2d
+    proj, p00e, p11e = project_splats2d(splats, camera)
+    proj = dataclasses.replace(
+        proj, depth=torch.arange(proj.count, dtype=proj.mx.dtype,
+                                 device=proj.mx.device))
+    return render_projected(proj, camera, cfg, p00=p00e, p11=p11e,
+                            return_aux=return_aux)
+
+
+def render_splats4d(splats: Splats4D, camera: Camera, t,
+                    min_opacity=0.0, cfg: RenderConfig = RenderConfig(),
+                    return_aux: bool = False):
+    """4D slice at time t (a Python float or a 0-d tensor), EWA and the
+    tiled ordered composite, sorted by the reference's quirky sorting mean
+    (splats.gaussians.mean_in_time_sortkey). For 10M+ splats use
+    render_params4d_packed: it never builds (N, 4, 4) covariances."""
+    sliced, top = splats.at_time(t, min_opacity)
+    sort_mean = mean_in_time_sortkey(splats.position, splats.cov, t)
+    return render_splats3d(sliced, camera, opacity=top, sort_mean3=sort_mean,
+                           cfg=cfg, return_aux=return_aux)

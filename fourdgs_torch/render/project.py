@@ -16,6 +16,8 @@ from fourdgs_torch.core.camera import Camera
 
 LAMBDA_EPS = 1e-6          # eigenvalue clamp
 CULL_BOUND = 1.2           # NDC xy cull bound
+ALPHA_DISCARD = 1e-4       # fragment discard threshold
+FOOTPRINT_SCALE = 8.0      # fragment-coordinate scale
 # Radius of the w >= 1e-4 discard threshold in normalized quad coords:
 # exp(-32 r^2) = 1e-4  =>  r = sqrt(ln(1e4)/32) = 0.536492; +0.1% slack.
 R_COVER = 0.5371
@@ -43,6 +45,14 @@ def eigen2x2_scalar(a, b, c):
     return lmin, lmax, v0x, v0y
 
 
+def eigen2x2(cov2: torch.Tensor):
+    """Matrix-shaped wrapper over eigen2x2_scalar: cov2 (..., 2, 2) ->
+    (lmin, lmax, v0 (..., 2))."""
+    lmin, lmax, v0x, v0y = eigen2x2_scalar(
+        cov2[..., 0, 0], cov2[..., 0, 1], cov2[..., 1, 1])
+    return lmin, lmax, torch.stack([v0x, v0y], dim=-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class Projected:
     """Screen-space splats, every field an (N,) tensor. Lengths l are in k
@@ -66,9 +76,14 @@ class Projected:
     def count(self) -> int:
         return self.mx.shape[0]
 
-    def to(self, device) -> "Projected":
-        return Projected(**{f.name: getattr(self, f.name).to(device)
+    def map(self, fn) -> "Projected":
+        """Projected with fn applied to every field (a permutation, a
+        reversal, a move)."""
+        return Projected(**{f.name: fn(getattr(self, f.name))
                             for f in dataclasses.fields(self)})
+
+    def to(self, device) -> "Projected":
+        return self.map(lambda a: a.to(device))
 
     def half_extent_ndc(self, p00: torch.Tensor, p11: torch.Tensor):
         """Half extents (hx, hy) in NDC of the visible footprint (quad
@@ -163,3 +178,47 @@ def project_components(mx, my, mz, cov3, colors, opacity, camera: Camera,
                                                    device=mx.device), (n,)),
         valid=valid,
     )
+
+
+def project_splats(mean3: torch.Tensor, cov3: torch.Tensor,
+                   color: torch.Tensor, opacity, camera: Camera,
+                   sort_mean3: Optional[torch.Tensor] = None) -> Projected:
+    """Matrix-shaped wrapper over project_components: mean3 (N, 3), cov3
+    (N, 3, 3), color (N, 4), opacity (N,) or a scalar."""
+    cov = (cov3[:, 0, 0], cov3[:, 0, 1], cov3[:, 0, 2],
+           cov3[:, 1, 1], cov3[:, 1, 2], cov3[:, 2, 2])
+    colors = (color[:, 0], color[:, 1], color[:, 2], color[:, 3])
+    sm = None if sort_mean3 is None else (sort_mean3[:, 0], sort_mean3[:, 1],
+                                          sort_mean3[:, 2])
+    return project_components(mean3[:, 0], mean3[:, 1], mean3[:, 2], cov,
+                              colors, opacity, camera, sort_mean=sm)
+
+
+def pixel_weight(proj2d: Projected, px: torch.Tensor, py: torch.Tensor,
+                 p00, p11):
+    """Gaussian weight of every (splat, pixel) pair and the quad-coverage
+    mask, the fragment shader's math. px, py: pixel NDC coordinates of any
+    shape P; splat fields (N,). Returns (weight, coverage), each (N,) + P:
+
+        weight = exp(-0.5 * 64 * ((k_eig0 / l0)^2 + (k_eig1 / l1)^2))
+
+    with k = NDC offset / (p00, p11) in the splat's eigenframe; coverage is
+    the quad clip |k_eig,i| <= 0.5 l_i and weight >= ALPHA_DISCARD."""
+    pshape = px.shape
+    px = px.reshape((1,) + pshape)
+    py = py.reshape((1,) + pshape)
+    expand = (slice(None),) + (None,) * len(pshape)
+
+    dx = (px - proj2d.mx[expand]) / p00
+    dy = (py - proj2d.my[expand]) / p11
+    v0x = proj2d.v0x[expand]
+    v0y = proj2d.v0y[expand]
+    k0 = v0x * dx + v0y * dy        # along v0 (the lambda_min axis)
+    k1 = v0y * dx - v0x * dy        # along v1 = (v0y, -v0x)
+    n0 = k0 / proj2d.l0[expand]
+    n1 = k1 / proj2d.l1[expand]
+    q = (FOOTPRINT_SCALE * FOOTPRINT_SCALE) * (n0 * n0 + n1 * n1)
+    weight = torch.exp(-0.5 * q)
+    coverage = ((torch.abs(n0) <= 0.5) & (torch.abs(n1) <= 0.5)
+                & (weight >= ALPHA_DISCARD))
+    return weight, coverage

@@ -1,18 +1,23 @@
-"""Tile binning, quantized-depth branch (port of fourdgs/render/tiles.py).
+"""Tile binning (port of fourdgs/render/tiles.py).
 
 Each projected splat's footprint selects a rectangle of image tiles; every
-splat emits a fixed budget of (tile, splat) pair slots. A pair's sort key
-packs (tile_id << 20) | top-20-bits-of-float(distance), so one sort of the
-keys yields tile-major, front-to-back order, and the per-tile ranges (CSR
-offsets) come from a left bisect of the sorted keys.
+splat emits a fixed budget of (tile, splat) pair slots. Two orderings:
 
-Images of 2047 tiles or more are binned one band of tile rows at a time
-(`tile_row_band`, driven by render/pipeline.py), each band with
-band-relative tile ids. With `pallas_sort` the compacted rows are stitched
-by the bitonic merge kernels (K11-K13) instead of one global sort, and a
-depth prune that is not fused into the rowsort kernel runs as its own pass
-(K10). The exact (non-quantized) branch and the sharded tile window wait;
-see ROADMAP.md.
+* exact (the default, `quantized_depth=False`): `proj` is already in
+  front-to-back order (render/sort.front_to_back_order), so one sort of the
+  pairs by (tile id, splat index) leaves every tile's list depth-ordered;
+* quantized (`quantized_depth=True`, the 10M+ fast path): a pair's sort key
+  packs (tile_id << 20) | top-20-bits-of-float(distance), so one sort of the
+  keys yields tile-major, front-to-back order. Images of 2047 tiles or more
+  are binned one band of tile rows at a time (`tile_row_band`, driven by
+  render/pipeline.py), each band with band-relative tile ids. With
+  `pallas_sort` the compacted rows are stitched by the bitonic merge kernels
+  (K11-K13) instead of one global sort, and a depth prune that is not fused
+  into the rowsort kernel runs as its own pass (K10).
+
+Either way the per-tile ranges (CSR offsets) come from a left bisect of the
+sorted pairs. The sharded tile window (`tile_range`) waits for the port of
+parallel/ (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -30,12 +35,15 @@ from fourdgs_torch.ops.sort_cuda import (DEAD, merge_sorted_rows,
                                          rowsort_compact)
 from fourdgs_torch.render.project import Projected
 
+TILE_H = 32
+TILE_W = 32
 QUANT_DEPTH_BITS = 20
 COMPACT_ROW_LEN = 8192      # row width of the plain compaction sort
-TILE_LIMIT = (1 << 11) - 1  # the key's 11-bit tile-id budget
+TILE_LIMIT = (1 << 11) - 1  # the quantized key's 11-bit tile-id budget
 
 
-def tile_grid(width: int, height: int, tile_h: int, tile_w: int):
+def tile_grid(width: int, height: int, tile_h: int = TILE_H,
+              tile_w: int = TILE_W):
     """Number of tiles (ny, nx) covering a width x height image."""
     return (-(-height // tile_h), -(-width // tile_w))
 
@@ -300,10 +308,37 @@ def quantized_pair_keys(proj: Projected, p00, p11, width: int, height: int,
     return key, splat_idx, overflowed, ids
 
 
+def exact_pairs(proj: Projected, p00, p11, width: int, height: int,
+                tile_h: int, tile_w: int, max_tiles_per_splat: int,
+                tile_row_band: Optional[Tuple[int, int]] = None):
+    """The exact branch's sorted pairs: (pair_tile, pair_splat, overflowed).
+
+    The reference sorts the pairs on two keys, (tile id, splat index); here
+    they are one int64 key, tile id << 32 | splat index, under one
+    torch.sort. Dead slots carry tile id num_tiles and sort last. Every
+    (tile, splat) pair is unique, so the order has no ties and equals the
+    reference's exactly."""
+    ny, nx = tile_grid(width, height, tile_h, tile_w)
+    alive, tx0, tx1, ty0, ty1 = splat_tile_bbox(proj, p00, p11, width,
+                                                height, tile_h, tile_w)
+    if tile_row_band is not None:
+        alive, ty0, ty1, ny = clip_to_tile_row_band(alive, ty0, ty1,
+                                                    tile_row_band)
+    with record_function("fourdgs::emit"):
+        tids, _, splat_idx, overflowed = _emit_pair_slots(
+            alive, tx0, tx1, ty0, ty1, nx, ny * nx, max_tiles_per_splat)
+        key = (torch.cat(tids).to(torch.int64) << 32) | splat_idx.to(
+            torch.int64)
+    with record_function("fourdgs::global_sort"):
+        key_s = torch.sort(key).values
+    return ((key_s >> 32).to(torch.int32),
+            (key_s & 0xFFFFFFFF).to(torch.int32), overflowed)
+
+
 def bin_splats(proj: Projected, p00, p11, width: int, height: int,
-               tile_h: int, tile_w: int,
+               tile_h: int = TILE_H, tile_w: int = TILE_W,
                max_tiles_per_splat: int = 16,
-               quantized_depth: bool = True,
+               quantized_depth: bool = False,
                compact_keep_cols: int = 0,
                big_splat_budget: int = 0,
                big_splat_keep_cols: int = 128,
@@ -315,9 +350,15 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
                head_cap: int = 0,
                tile_row_band: Optional[Tuple[int, int]] = None
                ) -> TileBinning:
-    """Build sorted (tile, splat) pairs, quantized-depth branch.
+    """Build sorted (tile, splat) pairs.
 
-    Pipeline: emit pair keys (quantized_pair_keys); estimate the per-tile
+    Exact (quantized_depth=False): `proj` must already be in front-to-back
+    order; the pairs sort by (tile id, splat index) (exact_pairs), so a
+    tile's list is depth-ordered. The quantized branch's options (prune,
+    compaction, big tier, sort backend, head_cap) do not apply, and its
+    fields of the result are None, as in the reference.
+
+    Quantized: emit pair keys (quantized_pair_keys); estimate the per-tile
     depth-prune cut (depth_prune_cutkeys) and apply it, fused into the
     rowsort kernel (pallas_compact without pallas_sort) or as its own pass
     (apply_cutkeys, K10); compact the mostly-dead slot array; sort, with
@@ -331,13 +372,19 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
     Ties within a (tile, 20-bit depth) bucket order arbitrarily, as in the
     reference.
     """
-    if not quantized_depth:
-        raise NotImplementedError("the exact-order branch is not ported yet "
-                                  "(ROADMAP.md Queue A, item 9)")
     ny, nx = tile_grid(width, height, tile_h, tile_w)
     if tile_row_band is not None:
         ny = tile_row_band[1]
     num_tiles = ny * nx
+    if not quantized_depth:
+        tid_s, splat_s, overflowed = exact_pairs(
+            proj, p00, p11, width, height, tile_h, tile_w,
+            max_tiles_per_splat, tile_row_band)
+        tile_ids = torch.arange(num_tiles + 1, dtype=torch.int32,
+                                device=tid_s.device)
+        return TileBinning(pair_splat=splat_s, pair_tile=tid_s,
+                           tile_start=searchsorted_i32(tid_s, tile_ids),
+                           overflowed=overflowed)
     fuse_cut = bool(depth_prune_cap and compact_keep_cols and pallas_compact
                     and not pallas_sort)
     with record_function("fourdgs::emit"):
@@ -455,8 +502,8 @@ def searchsorted_i32(sorted_arr: torch.Tensor,
     return torch.searchsorted(sorted_arr, queries, out_int32=True)
 
 
-def tile_pixel_ndc(width: int, height: int, tile_h: int, tile_w: int,
-                   device=None, dtype=torch.float32):
+def tile_pixel_ndc(width: int, height: int, tile_h: int = TILE_H,
+                   tile_w: int = TILE_W, device=None, dtype=torch.float32):
     """NDC coords of pixel centers for every tile: (px, py) of shape
     (T, tile_h * tile_w) with T = ny * nx, plus the (ny, nx) grid, on
     `device`, by default the card (fourdgs_torch.default_device). Padding
@@ -479,7 +526,7 @@ def tile_pixel_ndc(width: int, height: int, tile_h: int, tile_w: int,
 
 
 def assemble_image(tiles_rgba: torch.Tensor, width: int, height: int,
-                   tile_h: int, tile_w: int) -> torch.Tensor:
+                   tile_h: int = TILE_H, tile_w: int = TILE_W) -> torch.Tensor:
     """(T, tile_h*tile_w, 4) tile buffers -> (H, W, 4) image (cropped)."""
     ny, nx = tile_grid(width, height, tile_h, tile_w)
     img = tiles_rgba.reshape(ny, nx, tile_h, tile_w, 4)

@@ -14,11 +14,45 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from fourdgs_torch import resolve_device
+from fourdgs_torch import as_tensors, resolve_device
 
 PARAM4D_FIELDS = ("px", "py", "pz", "pt", "qw", "qx", "qy", "qz",
                   "sx", "sy", "sz", "lifetime", "fade", "vx", "vy", "vz",
                   "cr", "cg", "cb", "ca")
+
+
+def params4d_from_arrays(position4, quat, scale3, lifetime, fade, velocity,
+                         color, device=None) -> Dict[str, torch.Tensor]:
+    """Split (N, k) parameters into the packed (N,) component dict, on
+    `device` (fourdgs_torch.as_tensors: without one, tensors stay where
+    they are and arrays go beside them, or to the card); lifetime and fade
+    may be scalars, broadcast to (N,) in position4's dtype and device."""
+    position4, quat, scale3, lifetime, fade, velocity, color = as_tensors(
+        position4, quat, scale3, lifetime, fade, velocity, color,
+        device=device)
+    n = position4.shape[0]
+
+    def per_splat(x):
+        x = torch.as_tensor(x, dtype=position4.dtype, device=position4.device)
+        return torch.broadcast_to(x, (n,)).contiguous()
+    return dict(
+        px=position4[:, 0], py=position4[:, 1], pz=position4[:, 2],
+        pt=position4[:, 3],
+        qw=quat[:, 0], qx=quat[:, 1], qy=quat[:, 2], qz=quat[:, 3],
+        sx=scale3[:, 0], sy=scale3[:, 1], sz=scale3[:, 2],
+        lifetime=per_splat(lifetime), fade=per_splat(fade),
+        vx=velocity[:, 0], vy=velocity[:, 1], vz=velocity[:, 2],
+        cr=color[:, 0], cg=color[:, 1], cb=color[:, 2], ca=color[:, 3],
+    )
+
+
+def time_like(t, like: torch.Tensor):
+    """A frame time for arithmetic with `like`: a tensor (0-d, or per
+    splat) in like's dtype, left on its device, or a Python float. Neither
+    reads a tensor back to the host, so a time on the card costs no sync."""
+    if isinstance(t, torch.Tensor):
+        return t.to(like.dtype)
+    return float(t)
 
 
 def params4d_from_numpy(params_np: Mapping[str, np.ndarray],
@@ -107,16 +141,17 @@ def cov4_motion(params: Dict[str, torch.Tensor]):
             tx, ty, tz, st)
 
 
-def slice4d(params: Dict[str, torch.Tensor], cov4, t: float,
+def slice4d(params: Dict[str, torch.Tensor], cov4, t,
             min_opacity: float = 0.0):
-    """Conditional slice at time t plus temporal opacity, in components.
-    Returns (mx, my, mz, cov3_6tuple, opacity, (sort_mx, sort_my, sort_mz)).
+    """Conditional slice at time t (a Python float or a 0-d tensor, see
+    time_like) plus temporal opacity, in components. Returns (mx, my, mz,
+    cov3_6tuple, opacity, (sort_mx, sort_my, sort_mz)).
 
     The sort mean reproduces the reference's quirky sorting position,
     advanced by Sigma_{4,1:3} itself rather than the conditional velocity.
     """
     (c00, c01, c02, c11, c12, c22, c03, c13, c23, c33) = cov4
-    dt = float(t) - params["pt"]
+    dt = time_like(t, c33) - params["pt"]
     inv_st = 1.0 / c33
     mx = params["px"] + c03 * inv_st * dt
     my = params["py"] + c13 * inv_st * dt

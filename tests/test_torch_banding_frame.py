@@ -95,7 +95,7 @@ def test_banding_adds_nothing_below_the_limit():
         lo, nb = band
         binning = TT.bin_splats(
             proj, pm[0, 0], pm[1, 1], w, h, tile_h=TILE_H, tile_w=TILE_W,
-            max_tiles_per_splat=cfg.max_tiles_per_splat,
+            max_tiles_per_splat=cfg.max_tiles_per_splat, quantized_depth=True,
             compact_keep_cols=cfg.sort_compact_keep_cols,
             big_splat_budget=cfg.big_splat_budget, pallas_compact=True,
             compact_row_len=cfg.compact_row_len, tile_row_band=band)

@@ -249,7 +249,7 @@ def test_cull_box_is_conservative_on_a_frame():
     cfg = auto_render_config(n, w, h, converged=False)
     binning = TT.bin_splats(
         proj, p00, p11, w, h, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-        max_tiles_per_splat=cfg.max_tiles_per_splat,
+        max_tiles_per_splat=cfg.max_tiles_per_splat, quantized_depth=True,
         compact_keep_cols=cfg.sort_compact_keep_cols,
         big_splat_budget=cfg.big_splat_budget,
         big_splat_keep_cols=cfg.big_splat_keep_cols, pallas_compact=True,

@@ -142,11 +142,20 @@ def test_default_device_is_the_card():
     from fourdgs_torch.core.camera import Camera
     from fourdgs_torch.render.tiles import tile_pixel_ndc
     from fourdgs_torch.scenes.cube import build_cube_scene
+    from fourdgs_torch.splats.gaussians import (Splats3D, Splats4D,
+                                                splats2d_from_numpy,
+                                                splats3d_from_numpy,
+                                                splats4d_from_numpy)
+    from fourdgs_torch.splats.packed import params4d_from_arrays
     assert fourdgs_torch.default_device().type == "cuda"
     assert fourdgs_torch.resolve_device(None) == fourdgs_torch.default_device()
     assert fourdgs_torch.resolve_device("cpu") == torch.device("cpu")
     for fn in (Camera.create, build_cube_scene, params4d_from_numpy,
-               tile_pixel_ndc, composite_cuda.identity_carry):
+               tile_pixel_ndc, composite_cuda.identity_carry,
+               Splats3D.from_params, Splats4D.from_motion,
+               Splats4D.from_isoclinic, params4d_from_arrays,
+               splats2d_from_numpy, splats3d_from_numpy,
+               splats4d_from_numpy):
         assert inspect.signature(fn).parameters["device"].default is None, fn
 
 
@@ -163,6 +172,53 @@ def test_identity_carry_goes_to_the_default_device(monkeypatch):
     assert cpu.device.type == "cpu"
     assert (cpu[:, 4] == 1).all() and cpu[:, :4].abs().sum() == 0
     assert cpu[:, 5:].abs().sum() == 0
+
+
+def test_splat_makers_go_to_the_default_device(monkeypatch):
+    """The splat makers given numpy arrays, as the reference's scene
+    generators hand them, make every tensor (the covariance too) on
+    default_device() (the meta device stands in for the card here), in
+    float32 as `jnp.asarray` does; given tensors they leave them where they
+    are and put the arrays beside them; a named device takes everything."""
+    import fourdgs_torch
+    from fourdgs_torch.splats.gaussians import Splats3D, Splats4D
+    from fourdgs_torch.splats.packed import params4d_from_arrays
+    monkeypatch.setattr(fourdgs_torch, "default_device",
+                        lambda: torch.device("meta"))
+    rng = np.random.default_rng(0)
+    n = 5
+    pos4 = rng.random((n, 4)).astype(np.float32)
+    quat, scale3, vel = rng.random((n, 4)), rng.random((n, 3)), rng.random(
+        (n, 3))
+    life, fade = np.ones(n), np.full(n, 0.5)
+    color = rng.random((n, 4)).astype(np.float32)
+    made = {
+        "from_params": Splats3D.from_params(pos4[:, :3], quat, scale3, color),
+        "from_motion": Splats4D.from_motion(pos4, quat, scale3, life, fade,
+                                            vel, color),
+        "from_isoclinic": Splats4D.from_isoclinic(pos4, quat, quat[::-1],
+                                                  rng.random((n, 4)), color),
+    }
+    for name, s in made.items():
+        for f in ("position", "color", "cov"):
+            t = getattr(s, f)
+            assert t.device.type == "meta" and t.dtype == torch.float32, (
+                name, f)
+    packed = params4d_from_arrays(pos4, quat, scale3, 1.0, 0.5, vel, color)
+    assert set(packed) == set(PARAM4D_FIELDS)
+    assert all(v.device.type == "meta" and v.shape == (n,)
+               for v in packed.values())
+    beside = Splats4D.from_motion(torch.from_numpy(pos4), quat, scale3, life,
+                                  fade, vel, color)
+    assert beside.cov.device.type == "cpu"
+    named = Splats4D.from_motion(pos4, quat, scale3, life, fade, vel, color,
+                                 device="cpu")
+    assert named.cov.device.type == "cpu"
+    assert named.cov.dtype == torch.float32
+    cpu = params4d_from_arrays(pos4, quat, scale3, 1.0, 0.5, vel, color,
+                               device="cpu")
+    np.testing.assert_array_equal(cpu["pt"].numpy(), pos4[:, 3])
+    assert all(v.device.type == "cpu" for v in cpu.values())
 
 
 def _params(n=7):

@@ -157,5 +157,5 @@ def test_pallas_sort_refuses_other_keeps():
         TCamera.create(width=64, height=64, device="cpu"), 0.0)
     with pytest.raises(ValueError, match="power-of-two"):
         TT.bin_splats(ref_proj, torch.tensor(1.0), torch.tensor(1.0), 64, 64,
-                      tile_h=16, tile_w=64, compact_keep_cols=300,
-                      pallas_sort=True)
+                      tile_h=16, tile_w=64, quantized_depth=True,
+                      compact_keep_cols=300, pallas_sort=True)
