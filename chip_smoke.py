@@ -138,9 +138,10 @@ on the same card at each of those call sites. Phases:
       CPU (2,000 of the 4D splats at 256x128);
   (s) the viewer's full-width frame, the reference's `linear` scene at its
       size on the reference's fallback model (182,400 motion splats,
-      `linear_scene`), at 800x800 and 1920x1080 under the viewer's and the
-      default config at t = 20: the binning of the frame's projection
-      equal on card and CPU (`overflowed` included), launch counts, the
+      `scenes.linear_motion(models.torus(76, 48))`), at 800x800 and
+      1920x1080 under the viewer's and the default config at t = 20: the
+      binning of the frame's projection equal on card and CPU
+      (`overflowed` included), launch counts, the
       median ms, peak memory and aux of each frame, K1 against plain at its
       inputs (the frame is black: M = 1,024 keeps only faded pairs); the
       xla frame at 800x800 with the chunk's color sum as a matmul
@@ -152,6 +153,32 @@ on the same card at each of those call sites. Phases:
       binning equal on card and CPU, its image lit and within the parity
       tolerances of the dense renderer on the card, K1 and K8 (a grad step)
       against plain at its inputs, K8 and plain against plain in float64.
+
+  the fitting path (`train.trainer.fit` through `materialize_splats` and
+  `render_splats4d`, with adaptive density control and checkpoints):
+  (t1) `densify_step` and `reset_opt_slots` on the card against the CPU,
+      from one 20K-slot state with one set of draws: `changed`, the counts,
+      every parameter and the reset moments bit-equal;
+  (t2) `fit`, 3 steps of the 20K cube at 512x256 on the card and on the
+      CPU, under the viewer's pallas config and a converged config: losses
+      step by step within FIT_LOSS_RTOL, launches per step;
+  (t3) the full-width fit: the cube at 1,000,000 splats, Morton-ordered,
+      padded with `densify.pad_params` to 1,048,576 slots, at 1920x1088
+      under `auto_render_config(1_048_576, 1920, 1088)`: K1-K9 against
+      their plain versions at one fit step's inputs; 9 steps with densify
+      events after steps 3 and 6 and a `MetricsLogger` in chiprun_out/
+      (launches per step, step and event times, peak memory, the counts);
+      the counters 0 on one frame; a checkpoint saved and loaded on the
+      card, bit-equal;
+  (t4) `examples.fit_motion`, 300 steps on the card: the loss falls;
+  the viewer path:
+  (u) `viewer.cli.main` on the card on the `linear` scene (182,400 splats)
+      at 800x800 with --backend xla, pallas, dense and --converged (each
+      frame timed; K1, and K1-K7 for --converged, against plain at the
+      frame's inputs; the converged frame lit, its counters 0, its mean and
+      p99 |d| against the dense frame), --grid --axis, a 4-frame --sweep,
+      and every scene of SCENES at 256x256; every image finite and written
+      as a PNG under chiprun_out/viewer/.
 
 Any failed check raises, so the script exits non-zero. It prints a JSON
 line with one entry per kernel and path (launches per frame or grad step of
@@ -168,7 +195,10 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -338,8 +368,10 @@ def turns_ms(fns, reps, rounds=3):
 
 
 def _clone(a):
+    # Detached: a clone of a tensor that requires grad would keep its step's
+    # autograd graph (and every tensor it saved) alive with the capture.
     if hasattr(a, "clone"):
-        return a.clone()
+        return a.detach().clone()
     if isinstance(a, (list, tuple)):
         return type(a)(_clone(x) for x in a)
     return a
@@ -2376,62 +2408,6 @@ def small_exact_scenes(seed=11):
     return {"4d": s4, "3d": s3, "2d": s2}
 
 
-def linear_scene(steps=None):
-    """(s)'s scene, on the CPU: the reference's `linear` scene
-    (fourdgs/scenes/scenes.py: linear_motion over _sweep_model) on the
-    reference's own model where its teapot file is absent, the torus grid
-    of models.teapot (torus(76, 48): radii 1.5 and 0.6, 3,648 vertices),
-    at full size: 3,648 vertices x 50 steps = 182,400 motion splats. The
-    model is scaled by 5; step dt shifts it by (dt, 0, 0) and centres its
-    splats at time dt; splat scale (4, 4, 1), lifetime 1, fade 0.5,
-    velocity (1, 0, 0), each splat turned to look along its vertex normal,
-    colors from the model's gradient. Float64 where the reference computes
-    in numpy's float64, float32 where it computes in float32."""
-    import math
-
-    import torch
-    from fourdgs_torch.core.transforms import quat_look_at
-    from fourdgs_torch.splats import gaussians as G
-
-    steps = LINEAR_STEPS if steps is None else steps
-    f64 = torch.float64
-    u = torch.arange(LINEAR_GRID[0], dtype=f64) * (2 * math.pi
-                                                   / LINEAR_GRID[0])
-    v = torch.arange(LINEAR_GRID[1], dtype=f64) * (2 * math.pi
-                                                   / LINEAR_GRID[1])
-    uu, vv = torch.meshgrid(u, v, indexing="ij")
-    ring = 1.5 + 0.6 * torch.cos(vv)
-    pos = torch.stack([ring * torch.cos(uu), 0.6 * torch.sin(vv),
-                       ring * torch.sin(uu)], -1).reshape(-1, 3).float()
-    nrm = torch.stack([torch.cos(vv) * torch.cos(uu), torch.sin(vv),
-                       torch.cos(vv) * torch.sin(uu)],
-                      -1).reshape(-1, 3).float()
-    n_v = pos.shape[0]
-    # The reference's model_gradient_color: brightness from the normal's
-    # angle to -y, rgb along the model's bounding box, alpha 1.
-    bright = (nrm[:, 1].to(f64) + 1.0) / 2.0 * 0.35 + 0.65
-    lo, hi = pos.min(0).values, pos.max(0).values
-    frac = (pos - lo).to(f64) / torch.clamp((hi - lo).to(f64), min=1e-9)
-    color = torch.cat([bright[:, None] * frac, torch.ones(n_v, 1, dtype=f64)],
-                      -1).clamp(0, 1).float()
-    dt = torch.arange(steps, dtype=f64)
-    shift = torch.stack([dt, 0 * dt, 0 * dt], -1)[:, None]
-    n = n_v * steps
-    pos4 = torch.cat([
-        ((pos * 5.0)[None].to(f64) + shift).reshape(n, 3).float(),
-        dt.float().repeat_interleave(n_v)[:, None]], -1)
-    unit = nrm / torch.clamp(torch.linalg.vector_norm(nrm, dim=1,
-                                                      keepdim=True), min=1e-9)
-    return G.Splats4D.from_motion(
-        position4=pos4,
-        quat=quat_look_at(unit, torch.tensor([0.0, 1.0, 0.0])).repeat(
-            steps, 1),
-        scale3=torch.tensor([4.0, 4.0, 1.0]).expand(n, 3),
-        lifetime=torch.ones(n), fade=torch.full((n,), 0.5),
-        velocity=torch.tensor([1.0, 0.0, 0.0]).expand(n, 3),
-        color=color.repeat(steps, 1))
-
-
 def exact_binning_check(tag, splats, cam_cpu, dev, tiles, t=T_GRAD):
     """The exact binning of one projection, the CPU's, on the card and on
     the CPU: the projection and the depth keys of a CPU frame of `splats`
@@ -2662,10 +2638,11 @@ def _timed_ms(fn, reps):
 
 
 def phase_exact_full(dev, kernels):
-    """(s): the viewer's full-width exact frame, linear_scene's 182,400
-    motion splats at t = 20 from the scene's camera, at 800x800 and
-    1920x1080, under the viewer's pallas config and the default config: the
-    exact binning of the frame's projection equal on card and CPU
+    """(s): the viewer's full-width exact frame, the `linear` scene's 182,400
+    motion splats (scenes.linear_motion on models.torus(76, 48)) at t = 20
+    from the scene's camera, at 800x800 and 1920x1080, under the viewer's
+    pallas config and the default config: the exact binning of the frame's
+    projection equal on card and CPU
     (`overflowed` included) at both tile shapes; per frame the launch
     counts, the median ms, peak memory and aux (overflowed and the
     truncation residual printed: the exact path has no big-splat tier and
@@ -2681,8 +2658,12 @@ def phase_exact_full(dev, kernels):
     from fourdgs_torch.ops import composite_cuda
     from fourdgs_torch.render import pipeline as TP
 
+    from fourdgs_torch.scenes import models as TM
+    from fourdgs_torch.scenes import scenes as TSC
+
     t0 = time.time()
-    s_cpu = linear_scene()
+    s_cpu = TSC.linear_motion(TM.torus(*LINEAR_GRID), steps=LINEAR_STEPS,
+                              device="cpu")[0]
     s_gpu = s_cpu.to(dev)
     print(f"(s) linear scene {s_cpu.count:,} motion splats "
           f"({s_cpu.count // LINEAR_STEPS:,} vertices x {LINEAR_STEPS} "
@@ -2818,15 +2799,15 @@ def color_sum_forms(tag, s_gpu, cam, cfg):
 
 
 def lit_frame(s_cpu, s_gpu, dev, kernels):
-    """(s)'s lit frame: linear_scene at the viewer's default t = 0, 800x800,
-    under the viewer's pallas config with M = LINEAR_M_LIT, which truncates
-    no tile. Its binning equal on card and CPU; one frame's launches (K1
-    once); the image finite, lit, and within PARITY_MEAN / PARITY_MAX of the
-    dense renderer on the card; K1 against plain at the frame's inputs; a
-    grad step's launches (K1 and K8 once), its gradients finite and
-    nonzero, K8 against plain at its inputs, and K8 and plain each against
-    the plain version run in float64; frame and step timed with their peak
-    memory. Returns (results, launches)."""
+    """(s)'s lit frame: the `linear` scene at the viewer's default t = 0,
+    800x800, under the viewer's pallas config with M = LINEAR_M_LIT, which
+    truncates no tile. Its binning equal on card and CPU; one frame's
+    launches (K1 once); the image finite, lit, and within PARITY_MEAN /
+    PARITY_MAX of the dense renderer on the card; K1 against plain at the
+    frame's inputs; a grad step's launches (K1 and K8 once), its gradients
+    finite and nonzero, K8 against plain at its inputs, and K8 and plain
+    each against the plain version run in float64; frame and step timed
+    with their peak memory. Returns (results, launches)."""
     import torch
     from fourdgs_torch.core.camera import Camera
     from fourdgs_torch.ops import composite_cuda
@@ -2939,6 +2920,604 @@ def lit_frame(s_cpu, s_gpu, dev, kernels):
           f"memory {peak:.2f} GiB; launches per step "
           f"{json.dumps(launches[step])}; every gradient finite and nonzero")
     torch.cuda.empty_cache()
+    return results, launches
+
+
+# ---------------------------------------------------------------------------
+# The fitting path: trainer.fit with densify, checkpoints (phase (t))
+# ---------------------------------------------------------------------------
+
+def trainer_params(packed):
+    """The trainer's parameter dict (parallel.distributed.PARAM_FIELDS) of a
+    packed scene (the cube's 20 component fields), on its device."""
+    import torch
+
+    def cols(*keys):
+        return torch.stack([packed[k] for k in keys], -1)
+    return dict(position4=cols("px", "py", "pz", "pt"),
+                quat=cols("qw", "qx", "qy", "qz"),
+                scale3=cols("sx", "sy", "sz"),
+                lifetime=packed["lifetime"].clone(),
+                fade=packed["fade"].clone(),
+                velocity=cols("vx", "vy", "vz"),
+                color=cols("cr", "cg", "cb", "ca"))
+
+
+def cube_trainer_params(n, seed, dev):
+    """The bench's cube scene of n splats, Morton-ordered, in the trainer's
+    layout on `dev` (made on the card's generator when dev is the card)."""
+    from fourdgs_torch.scenes.cube import build_cube_scene
+    from fourdgs_torch.splats.packed import morton_order
+    return trainer_params(morton_order(build_cube_scene(n, seed=seed,
+                                                        device=dev)))
+
+
+@contextlib.contextmanager
+def handed_draws(draws):
+    """Densify's normal draws are `draws` (made once on the CPU), moved to
+    the device of the call: one set of draws for the card and the CPU."""
+    from fourdgs_torch.train import densify as D
+    orig = D.normal_draws
+    D.normal_draws = lambda gen, shape, like: draws.to(like.device)
+    try:
+        yield
+    finally:
+        D.normal_draws = orig
+
+
+# (t1): a split child's position on card and CPU, relative to the largest
+# position: the offset (~10 at the cube's scales, positions up to ~200)
+# rounds differently through torch.rsqrt, a few ulp of the offset.
+SPLIT_POS_RTOL = 1e-6
+
+
+def phase_densify_devices(dev):
+    """(t1): densify_step and reset_opt_slots on the card against the CPU,
+    from one state (the 20K cube in the trainer's layout, every seventh
+    splat below the prune alpha, accumulated gradient norms made from a
+    seed, 3 steps) with one set of draws: `changed`, the counts and every
+    parameter bit-equal (a split child's position within SPLIT_POS_RTOL:
+    its offset goes through torch.rsqrt); Adam's moments after reset_opt_slots
+    bit-equal and the step count kept. densify_step timed on the card."""
+    import torch
+    from fourdgs_torch.train import densify as D
+
+    n = N_SMALL
+    gen = torch.Generator().manual_seed(21)
+    base = cube_trainer_params(n, 1, "cpu")
+    base["color"][::7, 3] = 1e-3
+    base["scale3"][::3] *= 0.25         # below the split scale: clones
+    acc = torch.rand(n, generator=gen) * 4e-5 * (
+        torch.rand(n, generator=gen) < 0.1)
+    draws = torch.randn((n, 3), generator=gen)
+    out = {}
+    for d in ("cpu", dev):
+        p = {k: v.clone().to(d) for k, v in base.items()}
+        state = D.DensifyState(acc.to(d), torch.tensor(3, dtype=torch.int32,
+                                                       device=d))
+        with handed_draws(draws):
+            p, new_state, info = D.densify_step(p, state, None)
+        leaves = {k: torch.zeros_like(v, requires_grad=True)
+                  for k, v in p.items()}
+        opt = torch.optim.Adam(list(leaves.values()), lr=1e-2)
+        g2 = torch.Generator().manual_seed(22)
+        for k, v in leaves.items():
+            opt.state[v] = {
+                "step": torch.tensor(2.0),
+                "exp_avg": torch.randn(v.shape, generator=g2).to(d),
+                "exp_avg_sq": torch.rand(v.shape, generator=g2).to(d)}
+        D.reset_opt_slots(opt, info["changed"], n)
+        out[str(d)] = (p, info, {k: opt.state[v] for k, v in leaves.items()})
+    (p_c, i_c, s_c), (p_g, i_g, s_g) = out["cpu"], out[str(dev)]
+    counts = {k: int(i_c[k]) for k in ("n_pruned", "n_placed", "n_split",
+                                       "n_cloned")}
+    check(counts == {k: int(i_g[k]) for k in counts},
+          f"(t1) densify counts differ: card {i_g}, CPU {counts}")
+    check(torch.equal(i_g["changed"].cpu(), i_c["changed"]),
+          "(t1) densify `changed` differs between card and CPU")
+    check(counts["n_split"] > 0 and counts["n_cloned"] > 0
+          and counts["n_pruned"] > counts["n_placed"] > 0,
+          f"(t1) the state does not exercise every branch: {counts}")
+    # A split child's offset is the draw turned by the parent's rotation,
+    # normalized with torch.rsqrt, which CUDA's rsqrtf (within 2 ulp) and
+    # the CPU's 1 / sqrt round differently: those rows may differ by a few
+    # ulp of the offset, held against the largest position.
+    changed = i_c["changed"]
+    split_rows, split_rel = 0, 0.0
+    for k in p_c:
+        g = p_g[k].cpu()
+        if k == "position4" and not torch.equal(g, p_c[k]):
+            rows = (g != p_c[k]).any(dim=1)
+            split_rows = int(rows.sum())
+            split_rel = float((g - p_c[k]).abs().max()
+                              / p_c[k].abs().max())
+            check(not bool((rows & ~changed).any()),
+                  f"(t1) densified position4 differs outside `changed`")
+            check(split_rel <= SPLIT_POS_RTOL,
+                  f"(t1) densified position4: {split_rows} rows differ by up "
+                  f"to {split_rel:.3e} of the largest position")
+        else:
+            check(torch.equal(g, p_c[k]), f"(t1) densified {k} is not "
+                  f"bit-equal on card and CPU (max |d| "
+                  f"{float((g - p_c[k]).abs().max()):.3e})")
+        for name in ("exp_avg", "exp_avg_sq"):
+            check(torch.equal(s_g[k][name].cpu(), s_c[k][name]),
+                  f"(t1) reset {name} of {k} differs between card and CPU")
+        check(float(s_g[k]["step"]) == 2.0, "(t1) reset changed the step")
+    equal = ("every parameter bit-equal" if not split_rows else
+             f"every parameter bit-equal but position4 at {split_rows:,} "
+             f"refilled slots, within {split_rel:.2e} of the largest "
+             f"position")
+
+    p = {k: v.clone().to(dev) for k, v in base.items()}
+    state = D.DensifyState(acc.to(dev), torch.tensor(3, dtype=torch.int32,
+                                                     device=dev))
+    with handed_draws(draws):
+        ms = cuda_ms(lambda: D.densify_step(
+            {k: v.clone() for k, v in p.items()}, state, None), reps=10)
+    print(f"(t1) densify_step + reset_opt_slots, {n:,} slots: counts "
+          f"{json.dumps(counts)}, `changed` ({int(i_c['changed'].sum()):,} "
+          f"slots), {equal}, Adam's reset moments bit-equal on card and "
+          f"CPU; densify_step on the card {ms:.3f} ms (with a copy of the "
+          f"parameters)")
+
+
+# Card against CPU, a fit's loss at each step: the frames of one step agree
+# within the tie tolerance (mean |d| < 1e-4, PERF.md section 2), which moves
+# an L2 loss of ~1e-2 by ~1e-6 relative; Adam turns the sign of a gradient
+# that rounding decides (tied pairs, edge pixels) into a full step of the
+# learning rate at that entry, so later steps drift further.
+FIT_LOSS_RTOL = 1e-3
+FIT_TIMES = (T_GRAD, 0.8)
+
+
+def _fit_cfgs(n, w, h):
+    """The fit phases' configs: the viewer's pallas config and a converged
+    config of the scene's size."""
+    from fourdgs_torch.render import pipeline as TP
+    from fourdgs_torch.render.autoconfig import auto_render_config
+    return (("viewer pallas 8x128", TP.RenderConfig(**EXACT_CFGS[1][1])),
+            ("converged", auto_render_config(n, w, h, converged=True)))
+
+
+def _targets(params, cam, cfg, times):
+    import torch
+    from fourdgs_torch.parallel.distributed import materialize_splats
+    from fourdgs_torch.render import pipeline as TP
+    with torch.no_grad():
+        s = materialize_splats(params)
+        return [(TP.render_splats4d(s, cam, torch.tensor(
+            t, device=cam.device), cfg=cfg), t) for t in times]
+
+
+def phase_fit_devices(dev, kernels):
+    """(t2): trainer.fit, 3 steps (lr 5e-3, frames at t = 0.37 and 0.8
+    toward the seed-1 scene, rendered on the CPU), of the 20K cube at
+    512x256 on the card and on the CPU, under the viewer's pallas config
+    and a converged config: losses step by step within FIT_LOSS_RTOL,
+    parameters finite; each kernel's launches per step."""
+    import torch
+    from fourdgs_torch.core.camera import Camera
+    from fourdgs_torch.scenes.cube import CUBE_CAMERA
+    from fourdgs_torch.train import trainer as TR
+
+    steps = 3
+    params = cube_trainer_params(N_SMALL, 0, "cpu")
+    cams = {d: Camera.create(**CUBE_CAMERA, width=W_SMALL, height=H_SMALL,
+                             device=d) for d in ("cpu", dev)}
+    launches = {}
+    for label, cfg in _fit_cfgs(N_SMALL, W_SMALL, H_SMALL):
+        tag = f"(t2) {label}"
+        frames = _targets(cube_trainer_params(N_SMALL, 1, "cpu"),
+                          cams["cpu"], cfg, FIT_TIMES)
+        res = {}
+        for d in ("cpu", dev):
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            res[str(d)] = TR.fit({k: v.to(d) for k, v in params.items()},
+                                 [(img.to(d), t) for img, t in frames],
+                                 cams[d], steps=steps, learning_rate=5e-3,
+                                 cfg=cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if d is dev:
+                total = {name: k.launches for name, k in kernels.items()}
+                check(all(v % steps == 0 for v in total.values()),
+                      f"{tag}: launches {total} differ between steps")
+                launches[label] = {name: v // steps
+                                   for name, v in total.items() if v}
+            for v in res[str(d)].params.values():
+                check(bool(torch.isfinite(v).all()),
+                      f"{tag} on {d}: a parameter is not finite")
+            print(f"{tag} on {d}: {steps} steps in {secs:.2f} s, losses "
+                  f"{', '.join(f'{x:.6f}' for x in res[str(d)].losses)}")
+        got, want = res[str(dev)].losses, res["cpu"].losses
+        rel = max(abs(a - b) / b for a, b in zip(got, want))
+        check(rel <= FIT_LOSS_RTOL, f"{tag}: card losses {got} against CPU "
+              f"{want}: {rel:.3e} relative > {FIT_LOSS_RTOL:g}")
+        check(want[-1] < want[0], f"{tag}: the loss did not fall: {want}")
+        print(f"{tag}: {N_SMALL:,} splats {W_SMALL}x{H_SMALL}, card against "
+              f"CPU losses within {rel:.3e} relative (tolerance "
+              f"{FIT_LOSS_RTOL:g}); launches per fit step "
+              f"{json.dumps(launches[label])}")
+    return launches
+
+
+FIT_N, FIT_CAPACITY, FIT_STEPS, FIT_EVERY = 1_000_000, 1 << 20, 9, 3
+FIT_FULL_TIMES = (0.0, T_GRAD)
+
+
+def _fit_step_targets():
+    """Every kernel wrapper of a converged fit step (capture_calls)."""
+    from fourdgs_torch.ops import composite_cuda, pack_cuda, tail_cuda
+    from fourdgs_torch.render import pipeline as TP
+    from fourdgs_torch.render import tiles as TT
+    return [(TT, "sample_blocks"), (TT, "rowsort_compact"),
+            (TP, "composite_records"), (TP, "sample_blocks"),
+            (pack_cuda, "pack_record_fields"), (pack_cuda, "pack_meta_rows"),
+            (tail_cuda, "tail_prepass"), (tail_cuda, "tail_accumulate"),
+            (composite_cuda, "composite_records_bwd"),
+            (tail_cuda, "tail_accumulate_bwd")]
+
+
+def _converged_kernels(tag, cap, n_k3):
+    """K1-K7 at one converged frame's captured inputs against plain; K3 at
+    its n_k3 call sites (the depth prune samples its keys with K3 only
+    from 2.2M pair slots on, tiles.depth_prune_cutkeys)."""
+    res = {
+        "K3 sample_blocks": phase_sample_blocks(
+            tag, cap.get("tiles.sample_blocks", [])
+            + cap["pipeline.sample_blocks"], n_k3),
+        "K2 rowsort_compact": phase_rowsort(
+            tag, cap["tiles.rowsort_compact"], also_no_cut=False),
+        "K1 composite": phase_composite(tag,
+                                        cap["pipeline.composite_records"]),
+    }
+    res.update(phase_converged_kernels(cap, tag))
+    return res
+
+
+def phase_fit_full(dev, kernels):
+    """(t3): the full-width fit. The bench's cube at 1,000,000 splats,
+    Morton-ordered, in the trainer's layout, padded with densify.pad_params
+    to 1,048,576 slots (512 chunks of 2048), the bench camera at 1920x1088
+    under auto_render_config(1_048_576, 1920, 1088); targets the seed-1
+    scene at t = 0 and 0.37. One captured fit step: K1-K9 against their
+    plain versions at its inputs. Then 9 steps, lr 5e-3, densify every 3
+    (events after steps 3 and 6; opt_reset "slots"), a MetricsLogger in
+    chiprun_out/: launches per step, the median step time of steps with no
+    event and each event's time (from the logger's wall clock), peak
+    memory, losses and parameters finite, the densify counts; the counters
+    0 on one frame of the config; a checkpoint saved and loaded on the
+    card, bit-equal. Returns (results, launches)."""
+    import os
+
+    import torch
+    from fourdgs_torch.core.camera import Camera
+    from fourdgs_torch.parallel.distributed import materialize_splats
+    from fourdgs_torch.render import pipeline as TP
+    from fourdgs_torch.render.autoconfig import auto_render_config
+    from fourdgs_torch.scenes.cube import CUBE_CAMERA
+    from fourdgs_torch.train import densify as D
+    from fourdgs_torch.train import trainer as TR
+
+    tag = "(t3)"
+    t0 = time.time()
+    params = D.pad_params(cube_trainer_params(FIT_N, 0, dev), FIT_CAPACITY)
+    cam = Camera.create(**CUBE_CAMERA, width=W_FULL, height=H_FULL,
+                        device=dev)
+    cfg = auto_render_config(FIT_CAPACITY, W_FULL, H_FULL, converged=True)
+    frames = _targets(cube_trainer_params(FIT_N, 1, dev), cam, cfg,
+                      FIT_FULL_TIMES)
+    with torch.no_grad():
+        img, aux = TP.render_splats4d(materialize_splats(params), cam,
+                                      torch.tensor(0.0, device=dev), cfg=cfg,
+                                      return_aux=True)
+    aux = {k: float(v) for k, v in aux.items()}
+    check(all(aux[k] == 0 for k in ("overflowed", "compact_dropped",
+                                    "resid_transmittance")),
+          f"{tag} one frame of the config lost pairs: {aux}")
+    mean_rgb = float(img[..., :3].mean())
+    check(0.01 < mean_rgb < 1.0, f"{tag} frame mean rgb {mean_rgb}")
+    del img
+    torch.cuda.synchronize()
+    print(f"{tag} {FIT_N:,} splats padded to {FIT_CAPACITY:,} slots, "
+          f"{W_FULL}x{H_FULL}, targets at t={FIT_FULL_TIMES}: scene and "
+          f"targets {time.time() - t0:.1f} s; one frame of the config: aux "
+          f"{json.dumps(aux)}, mean rgb {mean_rgb:.4f}")
+
+    cap = capture_calls(lambda: TR.fit(params, frames, cam, steps=1,
+                                       learning_rate=5e-3, cfg=cfg),
+                        _fit_step_targets())
+    path = f"fit step, converged, {FIT_CAPACITY:,} slots, {W_FULL}x{H_FULL}"
+    results = {path: _converged_kernels(f"{tag} fit step", cap, 2)}
+    results[path].update(phase_backward_kernels(
+        f"{tag} fit step", cap["composite_cuda.composite_records_bwd"],
+        cap["tail_cuda.tail_accumulate_bwd"]))
+    del cap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    log_path = os.path.join("chiprun_out", "fit_1m_metrics.jsonl")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    metrics = TR.MetricsLogger(log_path)
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev) / 2 ** 30
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = TR.fit(params, frames, cam, steps=FIT_STEPS, learning_rate=5e-3,
+                 cfg=cfg, densify_cfg=D.DensifyConfig(opt_reset="slots"),
+                 densify_every=FIT_EVERY, densify_until=1.0, seed=0,
+                 metrics=metrics)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    metrics.close()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    total = {name: k.launches for name, k in kernels.items()}
+    check(all(v % FIT_STEPS == 0 for v in total.values()),
+          f"{tag} launches {total} differ between steps")
+    launches = {path: {name: v // FIT_STEPS for name, v in total.items()}}
+    check(all(launches[path][name] > 0 for name in (
+        "K1 composite", "K2 rowsort_compact", "K3 sample_blocks",
+        "K4 pack_record_fields", "K5 pack_meta_rows", "K6 tail_prepass",
+        "K7 tail_accumulate", "K8 composite_bwd", "K9 tail_accumulate_bwd")),
+          f"{tag} a kernel of the fit step never launched: {total}")
+    check(all(x == x and abs(x) != float("inf") for x in res.losses),
+          f"{tag} a loss is not finite: {res.losses}")
+    for k, v in res.params.items():
+        check(bool(torch.isfinite(v).all()), f"{tag} {k} is not finite")
+
+    with open(log_path) as f:
+        lines = [json.loads(line) for line in f]
+    steps = [r for r in lines if r["event"] == "train_step"]
+    events = [r for r in lines if r["event"] == "densify"]
+    check(len(steps) == FIT_STEPS and [e["step"] for e in events] == [
+        FIT_EVERY - 1, 2 * FIT_EVERY - 1], f"{tag} logged {lines}")
+    check(events[0]["n_pruned"] >= FIT_CAPACITY - FIT_N,
+          f"{tag} the {FIT_CAPACITY - FIT_N:,} dead slots were not freed: "
+          f"{events}")
+    event_at = {e["step"]: e for e in events}
+    plain_steps, event_ms = [], []
+    for i in range(1, FIT_STEPS):
+        dt = (steps[i]["wall_s"] - steps[i - 1]["wall_s"]) * 1e3
+        if i - 1 in event_at:       # step i follows an event
+            ev = event_at[i - 1]
+            event_ms.append((ev["wall_s"] - steps[i - 1]["wall_s"]) * 1e3)
+            continue
+        plain_steps.append(dt)
+    med = statistics.median(plain_steps)
+    print(f"{tag} fit: {FIT_STEPS} steps in {secs:.2f} s; losses "
+          f"{', '.join(f'{x:.6f}' for x in res.losses)}; densify events "
+          + "; ".join(f"after step {int(e['step']) + 1}: pruned "
+                      f"{int(e['n_pruned']):,}, placed {int(e['n_placed']):,}"
+                      f", split {int(e['n_split']):,}" for e in events)
+          + f"; median step time (steps with no event, logger wall clock, "
+          f"1 ms resolution) {med:.0f} ms over {len(plain_steps)} "
+          f"[{', '.join(f'{x:.0f}' for x in plain_steps)}]; event times "
+          f"(accumulate, densify_step, reset_opt_slots, the counts' host "
+          f"read) {', '.join(f'{x:.0f}' for x in event_ms)} ms; peak memory "
+          f"{peak:.2f} GiB ({before:.2f} GiB allocated before the fit); "
+          f"launches per step {json.dumps(launches[path])}; "
+          f"metrics in {log_path}")
+
+    # Where the peak comes from: one frame without and with autograd, and
+    # the step's backward.
+    loss_fn = TR.make_loss_fn(cam, cfg)
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in res.params.items()}
+    peaks = {}
+    for label in ("frame, no grad", "frame with autograd", "step",
+                  "densify event"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        if label == "densify event":
+            gen = torch.Generator(device=dev).manual_seed(0)
+            loss = D.densify_step(p, D.init_state(FIT_CAPACITY, device=dev),
+                                  gen)
+        elif label == "frame, no grad":
+            with torch.no_grad():
+                loss = loss_fn(p, frames[0][0], torch.tensor(0.0, device=dev))
+        else:
+            loss = loss_fn(p, frames[0][0], torch.tensor(0.0, device=dev))
+            if label == "step":
+                loss.backward()
+        torch.cuda.synchronize()
+        peaks[label] = (torch.cuda.max_memory_allocated(dev)
+                        - base_mem) / 2 ** 30
+        del loss
+    print(f"{tag} peak memory above the parameters: " + ", ".join(
+        f"{k} {v:.2f} GiB" for k, v in peaks.items()))
+    del p
+
+    ckpt = os.path.join("chiprun_out", "fit_1m_ckpt")
+    TR.save_checkpoint(ckpt, res.params, step=FIT_STEPS)
+    back = TR.load_checkpoint(ckpt, device=dev)
+    check(set(back) == set(res.params) and all(
+        back[k].device == res.params[k].device
+        and torch.equal(back[k], res.params[k]) for k in back),
+          f"{tag} the checkpoint did not load back bit-equal")
+    size = os.path.getsize(ckpt + ".npz")
+    os.remove(ckpt + ".npz")
+    print(f"{tag} checkpoint ({size / 2 ** 20:.1f} MiB npz) saved and loaded "
+          f"on the card, bit-equal")
+    return results, launches
+
+
+def phase_fit_example():
+    """(t4): fourdgs_torch.examples.fit_motion, 300 steps on the card: its
+    printed lines, and the last loss below the first."""
+    from fourdgs_torch.examples import fit_motion
+    res = fit_motion.main(["--steps", "300", "--out",
+                           "chiprun_out/fit_motion"])
+    check(res.losses[-1] < res.losses[0], f"(t4) fit_motion: the loss did "
+          f"not fall: {res.losses[0]} -> {res.losses[-1]}")
+    print(f"(t4) fit_motion: loss {res.losses[0]:.5f} -> "
+          f"{res.losses[-1]:.5f} over 300 steps on the card")
+
+
+# ---------------------------------------------------------------------------
+# The viewer path: viewer.cli.main (phase (u))
+# ---------------------------------------------------------------------------
+
+VIEWER_OUT = "chiprun_out/viewer"
+VIEWER_BASE = ["--scene", "linear"]
+VIEWER_BACKENDS = (("xla", ["--backend", "xla"]),
+                   ("pallas", ["--backend", "pallas"]),
+                   ("dense", ["--backend", "dense"]),
+                   ("converged", ["--converged"]))
+VIEWER_SCENE_SIZE = 256
+
+
+def run_viewer(args, kernels, targets=()):
+    """viewer.cli.main(args) on the card with every kernel count 0 just
+    before and read just after, its printed lines captured, and each image
+    it writes recorded as a float array before it becomes a PNG. With
+    `targets`, every call of those wrappers is captured (capture_calls).
+    Returns (lines, images, launches, captured)."""
+    import io
+
+    import numpy as np
+    from fourdgs_torch.io import png
+    from fourdgs_torch.viewer import cli
+
+    images = []
+    write_png = png.write_png
+
+    def record(path, img):
+        images.append((path, np.array(img)))
+        write_png(path, img)
+    out = io.StringIO()
+    png.write_png = record
+    captured = {}
+    for k in kernels.values():
+        k.launches = 0
+    try:
+        with contextlib.redirect_stdout(out):
+            if targets:
+                captured = capture_calls(
+                    lambda: check(cli.main(args) == 0, f"(u) {args} failed"),
+                    targets)
+            else:
+                check(cli.main(args) == 0, f"(u) {args} failed")
+    finally:
+        png.write_png = write_png
+    import torch
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items() if k.launches}
+    for path, img in images:
+        check(np.isfinite(img).all(), f"(u) {path}: not finite")
+        check(os.path.exists(path), f"(u) {path} was not written")
+    return out.getvalue().splitlines(), images, launches, captured
+
+
+def phase_viewer(dev, kernels):
+    """(u): viewer.cli.main on the card on the `linear` scene (182,400
+    splats) at 800x800: --backend xla, pallas, dense and --converged (each
+    run twice, the second timed by the CLI's own clock; K1 at the pallas
+    frame's and K1-K7 at the converged frame's captured inputs against
+    plain), --grid --axis, a 4-frame --sweep; every image finite and
+    written as a PNG. The converged frame lit, its counters 0 (the same
+    config rendered once with return_aux=True), its mean and p99 |d|
+    against the dense frame. Then every scene of SCENES once at 256x256
+    (xla; `empty`, whose 0 splats the tiled path cannot bin, here as in the
+    reference, with the dense backend and the grid and axis). Returns
+    (results, launches)."""
+    import numpy as np
+    import torch
+    from fourdgs_torch.core.camera import Camera
+    from fourdgs_torch.render import pipeline as TP
+    from fourdgs_torch.scenes import scenes as TSC
+    from fourdgs_torch.viewer import cli
+
+    os.makedirs(VIEWER_OUT, exist_ok=True)
+    base = list(VIEWER_BASE)
+    results, launches, frames = {}, {}, {}
+    for label, flags in VIEWER_BACKENDS:
+        args = base + flags + ["--out", f"{VIEWER_OUT}/linear_{label}.png"]
+        targets = ()
+        if label == "pallas":
+            targets = [(TP, "composite_records")]
+        elif label == "converged":
+            # 1.46M pair slots: the depth prune samples without K3.
+            targets = [t for t in _fit_step_targets()[:8]
+                       if t[1] != "sample_blocks" or t[0] is TP]
+        _, images, first, cap = run_viewer(args, kernels, targets)
+        lines, images, lau, _ = run_viewer(args, kernels)
+        check(lau == first, f"(u) {label}: launches {lau}, first run {first}")
+        want = {"xla": {}, "dense": {}, "pallas": {"K1 composite": 1}}.get(
+            label)
+        check(want is None or lau == want, f"(u) {label}: launches {lau}")
+        check(want is not None or all(lau.get(n, 0) > 0 for n in (
+            "K1 composite", "K2 rowsort_compact", "K3 sample_blocks",
+            "K4 pack_record_fields", "K5 pack_meta_rows", "K6 tail_prepass",
+            "K7 tail_accumulate")), f"(u) {label}: launches {lau}")
+        path = f"viewer --backend {label}, linear 800x800" if label != \
+            "converged" else "viewer --converged, linear 800x800"
+        launches[path] = {n: lau.get(n, 0) for n in kernels}
+        frames[label] = images[0][1]
+        secs = lines[-1].split()[-4]
+        print(f"(u) {label}: {lines[-1]}; frame {secs} by the CLI's clock "
+              f"(second run); launches per frame {json.dumps(lau)}")
+        if label == "pallas":
+            results[path] = {"K1 composite": phase_composite(
+                "(u) pallas", cap["pipeline.composite_records"])}
+        elif label == "converged":
+            results[path] = _converged_kernels("(u) converged", cap, 1)
+        del cap
+        torch.cuda.empty_cache()
+
+    conv, dense = frames["converged"], frames["dense"]
+    check(conv[..., :3].mean() > 1e-3, f"(u) the converged frame is black")
+    d = np.abs(conv - dense)
+    splats, st = TSC.linear_motion(device=dev)
+    args = cli.build_argparser().parse_args(base + ["--converged"])
+    cam = Camera.create(position=st.camera_position,
+                        orientation=st.camera_orientation, width=args.width,
+                        height=args.height, device=dev)
+    cfg = cli.viewer_config(args, (0.0, 0.0, 0.0, 1.0))
+    with torch.no_grad():
+        _, aux = TP.render_splats4d(splats, cam, torch.tensor(0.0, device=dev),
+                                    cfg=cfg, return_aux=True)
+    aux = {k: float(v) for k, v in aux.items()}
+    check(all(aux[k] == 0 for k in ("overflowed", "compact_dropped",
+                                    "resid_transmittance")),
+          f"(u) the converged frame lost pairs: {aux}")
+    print(f"(u) converged frame: mean rgb {conv[..., :3].mean():.5f}, "
+          f"{(conv[..., :3].max(-1) > 0.01).mean():.4f} of pixels above 0.01;"
+          f" against the dense frame mean |d| {d.mean():.3e}, p99 |d| "
+          f"{np.quantile(d, 0.99):.3e}, max |d| {d.max():.3e} (no limit); "
+          f"aux {json.dumps(aux)}")
+    del splats
+
+    for label, extra in (("grid axis", ["--grid", "--axis"]),
+                         ("sweep", ["--sweep", "0:30:4"])):
+        out = f"{VIEWER_OUT}/linear_{label.replace(' ', '_')}"
+        lines, images, lau, _ = run_viewer(
+            base + extra + ["--out", out + ("" if label == "sweep" else
+                                            ".png")], kernels)
+        check(len(images) == (4 if label == "sweep" else 1),
+              f"(u) {label}: {len(images)} images")
+        print(f"(u) {label} (xla): " + "; ".join(lines))
+
+    size = ["--width", str(VIEWER_SCENE_SIZE), "--height",
+            str(VIEWER_SCENE_SIZE)]
+    lines = []
+    for name in TSC.SCENES:
+        flags = (["--backend", "dense", "--grid", "--axis"] if name == "empty"
+                 else ["--backend", "xla"])
+        out, images, _, _ = run_viewer(
+            ["--scene", name] + flags + size
+            + ["--out", f"{VIEWER_OUT}/scene_{name}.png"], kernels)
+        lines.append(f"{name} {out[-1].split('  ')[-1]}")
+    print(f"(u) every scene at {VIEWER_SCENE_SIZE}x{VIEWER_SCENE_SIZE}: "
+          + "; ".join(lines))
     return results, launches
 
 
@@ -3255,6 +3834,22 @@ def main() -> int:
         results.update(res)
         launches.update(lau)
         torch.cuda.empty_cache()
+
+    # The fitting path: (t1) densify card against CPU, (t2) 3-step fits card
+    # against CPU, (t3) the full-width fit, (t4) the example.
+    phase_densify_devices(dev)
+    phase_fit_devices(dev, kernels)
+    torch.cuda.empty_cache()
+    res, lau = phase_fit_full(dev, kernels)
+    results.update(res)
+    launches.update(lau)
+    torch.cuda.empty_cache()
+    phase_fit_example()
+    torch.cuda.empty_cache()
+    # The viewer path: (u) viewer.cli.main on the card.
+    res, lau = phase_viewer(dev, kernels)
+    results.update(res)
+    launches.update(lau)
 
     print(json.dumps({"kernels": [
         dict(name=f"{name} [{path}]", path=path, route="cuda",

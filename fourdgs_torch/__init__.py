@@ -1,7 +1,8 @@
 """fourdgs_torch — the PyTorch/CUDA port of `fourdgs`.
 
 The JAX package `fourdgs/` is the reference; this package mirrors its layout
-(`core/`, `splats/`, `render/`, `ops/`) and names. Plain tensor code is
+(`core/`, `splats/`, `render/`, `ops/`, `train/`, `scenes/`, `io/`,
+`viewer/`, `utils/`, `parallel/`; the examples in `examples/`) and names. Plain tensor code is
 PyTorch; every kernel the reference wrote in Pallas for the TPU is a CUDA C++
 kernel for Hopper (`ops/csrc/`), built with `nvcc` at first use. Each kernel
 has a plain PyTorch version in the same module: a wrapper given a CPU tensor
@@ -9,9 +10,11 @@ runs that version, a wrapper given a CUDA tensor launches the kernel.
 
 Entry points that make tensors (`Camera.create`, `build_cube_scene`,
 `params4d_from_numpy`, `params4d_from_arrays`, `tile_pixel_ndc`, the splat
-makers of `splats.gaussians`) make them on `default_device()`, the card,
-unless the caller names a device or hands them tensors; CPU callers pass
-`device="cpu"`.
+makers of `splats.gaussians`, the scene generators, `splats_to_params`,
+`load_checkpoint`, `densify.init_state`, the viewer CLI and the examples)
+make them on `default_device()`, the card, unless the caller names a
+device or hands them tensors; CPU callers pass `device="cpu"` (`--cpu` on
+the command line).
 
 This package never imports JAX.
 """

@@ -1,2 +1,3 @@
-"""Training losses of the port (fourdgs/train/). The reference's trainer
-(`fit`) and densification wait for its render path, `render_splats4d`."""
+"""Fitting 4D splat scenes to images (port of fourdgs/train/): losses, the
+fit loop with Adam and checkpoints (`trainer`), adaptive density control
+(`densify`)."""

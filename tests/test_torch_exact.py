@@ -489,16 +489,22 @@ def test_xla_backend_gradcheck_float64():
 
 
 def test_chip_smoke_linear_scene_is_the_references():
-    """chip_smoke.py's full-width scene is the reference's `linear` scene on
-    the reference's fallback model (`linear_motion(torus(76, 48))`), here
-    at 3 of its 50 steps: positions and time centres equal, colors within
-    1e-6, covariances within 1e-5 of their largest entry (the rotations
-    are float32 on both sides, through other operations)."""
+    """chip_smoke.py's full-width scene is the port's `linear` scene on the
+    reference's fallback model (`linear_motion(torus(76, 48))`), held here
+    against the reference's at 3 of its 50 steps: positions and time
+    centres equal, colors within 1e-6, covariances within 1e-5 of their
+    largest entry (the rotations are float32 on both sides, through other
+    operations)."""
+    import inspect
+
     import chip_smoke
     from fourdgs.scenes import models as RM
     from fourdgs.scenes import scenes as RSC
+    from fourdgs_torch.scenes import models as TM
+    from fourdgs_torch.scenes import scenes as TSC
     ref, settings = RSC.linear_motion(RM.torus(76, 48), steps=3)
-    got = chip_smoke.linear_scene(steps=3)
+    got, got_settings = TSC.linear_motion(TM.torus(*chip_smoke.LINEAR_GRID),
+                                          steps=3, device="cpu")
     assert got.count == 3 * 76 * 48 == ref.count
     np.testing.assert_array_equal(got.position.numpy(),
                                   np.asarray(ref.position))
@@ -510,3 +516,8 @@ def test_chip_smoke_linear_scene_is_the_references():
     assert chip_smoke.LINEAR_CAMERA == dict(
         position=settings.camera_position,
         orientation=settings.camera_orientation)
+    assert got_settings == TSC.SceneSettings(**settings.__dict__)
+    # chip_smoke builds (s)'s scene with that generator, not a copy of it.
+    assert not hasattr(chip_smoke, "linear_scene")
+    src = inspect.getsource(chip_smoke.phase_exact_full)
+    assert "linear_motion(" in src and "torus(*LINEAR_GRID)" in src
