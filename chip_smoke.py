@@ -178,7 +178,32 @@ on the same card at each of those call sites. Phases:
       frame's inputs; the converged frame lit, its counters 0, its mean and
       p99 |d| against the dense frame), --grid --axis, a 4-frame --sweep,
       and every scene of SCENES at 256x256; every image finite and written
-      as a PNG under chiprun_out/viewer/.
+      as a PNG under chiprun_out/viewer/;
+  the within-band weighting, K2's alternating rows, the sharded layer:
+  (v1) after (l), the 10M converged frame at tail_depth_beta = 8: K7 (both
+      streams) and K9 (its grad step) against plain; at the same inputs
+      unweighted, K9 bit-equal and K7 within K7's tolerance of their earlier
+      forms (`fourdgs_torch/tools/csrc/tail_unweighted.cu`,
+      `tail_bwd_unweighted.cu`), whose registers the unweighted instances
+      keep; 20K frames at tail_alpha_power 1 and tail_depth_beta 8 card
+      against CPU as in (h); the frame and the grad step timed beside (i);
+  (v2) K2's alternating form at that frame's keys exactly against plain,
+      its ascending form bit-equal to the earlier form
+      (`tools/csrc/rowsort_ascending.cu`);
+  (v3) at the end, in a process group of one rank (gloo and NCCL, TCP on
+      127.0.0.1, ended after): the 1M-splat cube at 1920x1088 through
+      render_splats4d_sharded (the viewer's pallas config) and
+      render_splats4d_sharded_alltoall, non-converged and converged at
+      tail_depth_beta = 8, each against render_splats4d at the same config
+      (3e-5; the converged mode at the reference's bounds), nothing dropped
+      under required_send_budget, K1 and K7 against plain at their inputs;
+  (v4) the three sharded train steps (K8, K9 against plain at a step's
+      inputs; step times, peak memory), a 5-step fit_sharded (converged,
+      beta 8) and fourdgs_torch.entry.dryrun_multichip(1);
+  (v5) 20K frames, losses and gradients of the three sharded modes, card
+      against CPU under the tie tolerances. One card runs world size 1
+      only: the multi-rank semantics are held by the CPU tests
+      (tests/test_torch_parallel*.py, four gloo processes).
 
 Any failed check raises, so the script exits non-zero. It prints a JSON
 line with one entry per kernel and path (launches per frame or grad step of
@@ -1080,6 +1105,12 @@ def phase_small_frame(dev, converged, tag=None, w=W_SMALL, h=H_SMALL,
     return b_gpu, img_g, aux_g
 
 
+def weighting_kw(kw):
+    """The tail's within-band weighting knobs among a wrapper call's
+    keywords (wd_ab, alpha_pow), for its plain version."""
+    return {k: kw[k] for k in ("wd_ab", "alpha_pow") if k in kw}
+
+
 def tail_slots(meta, budget_lo, budget):
     """Pair slots the tail kernels must walk: per splat, its tile span
     (meta row 5, 0 for a dead splat) within the budget window."""
@@ -1230,6 +1261,7 @@ def phase_converged_kernels(captured, tag="(g)"):
                                        "budget", "s_cy", "s_cx",
                                        "exact_clip")}
         plain_kw["budget_lo"] = kw.get("budget_lo", 0)
+        plain_kw.update(weighting_kw(kw))
 
         def k7_plain():
             return TL.tail_accumulate_plain(fields_p, meta, band, cut,
@@ -1550,6 +1582,7 @@ def phase_backward_kernels(tag, calls_c, calls_t):
         plain_kw = {k: kw[k] for k in ("k_bands", "nx", "ny", "chunk",
                                        "budget", "s_cy", "s_cx", "budget_lo",
                                        "exact_clip")}
+        plain_kw.update(weighting_kw(kw))
 
         def k9():
             return TL.tail_accumulate_bwd(*args, **kw)
@@ -1732,7 +1765,7 @@ def phase_small_grads(dev, converged, kernels):
     return captured, launches
 
 
-def phase_grad_step(params, camera, cfg, kernels, expect, timed):
+def phase_grad_step(params, camera, cfg, kernels, expect, timed, tag="(l)"):
     """(l): one 10M converged grad step with every launch count set to 0
     just before and read just after, then `timed` forward and forward +
     backward steps in turns. Returns (launches, step numbers)."""
@@ -1759,14 +1792,14 @@ def phase_grad_step(params, camera, cfg, kernels, expect, timed):
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
     for name, n in expect.items():
-        check(launches[name] == n, f"(l) {name}: {launches[name]} launches "
-              f"per grad step, want {n}")
-    check(bool(torch.isfinite(loss)), "(l) loss not finite")
+        check(launches[name] == n, f"{tag} {name}: {launches[name]} "
+              f"launches per grad step, want {n}")
+    check(bool(torch.isfinite(loss)), f"{tag} loss not finite")
     gmax = {}
     for k in PARAM4D_FIELDS:
         g = p[k].grad
         check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
-              f"(l) gradient of {k} not finite or zero")
+              f"{tag} gradient of {k} not finite or zero")
         gmax[k] = float(g.abs().max())
     torch.cuda.reset_peak_memory_stats(dev)
     fwd, both = [], []
@@ -1781,8 +1814,10 @@ def phase_grad_step(params, camera, cfg, kernels, expect, timed):
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     f_med, b_med = statistics.median(fwd), statistics.median(both)
     ratio = (b_med - f_med) / f_med
-    print(f"(l) grad step {params['px'].shape[0]:,} splats {W_FULL}x{H_FULL} "
-          f"converged, mean(img[..., :3]^2) at t={T_GRAD}: forward median "
+    print(f"{tag} grad step {params['px'].shape[0]:,} splats {W_FULL}x"
+          f"{H_FULL} converged"
+          f"{f', tail_depth_beta {cfg.tail_depth_beta:g}' if cfg.tail_depth_beta else ''}, "
+          f"mean(img[..., :3]^2) at t={T_GRAD}: forward median "
           f"{f_med:.2f} ms [{', '.join(f'{t:.2f}' for t in fwd)}], forward + "
           f"backward median {b_med:.2f} ms "
           f"[{', '.join(f'{t:.2f}' for t in both)}], backward / forward "
@@ -3521,6 +3556,665 @@ def phase_viewer(dev, kernels):
     return results, launches
 
 
+# ---------------------------------------------------------------------------
+# (v): the within-band weighting, K2's alternating rows and the sharded layer
+# ---------------------------------------------------------------------------
+
+BETA = 8.0               # the reference's multichip gate's tail_depth_beta
+# The sharded configurations of (v3)-(v5): the viewer's pallas config
+# through the all_gather exchange; the quantized non-converged head through
+# the all_to_all exchange (no prune, no compaction: the exchange has
+# neither); the converged config at tail_depth_beta = 8. A budget of 16
+# tiles a splat holds every splat of the cube (the single-chip path's big
+# tier takes spans of 5-16 there; the exchange has no big tier).
+SHARD_N = 1_000_000
+SHARD_BUDGET = 16
+
+
+def shard_cfgs(n, w, h):
+    import dataclasses
+
+    from fourdgs_torch.render.autoconfig import auto_render_config
+    from fourdgs_torch.render.pipeline import RenderConfig
+    return {
+        "allgather": ("allgather", RenderConfig(tile_h=8, tile_w=128,
+                                                backend="pallas")),
+        "alltoall": ("alltoall", RenderConfig(
+            tile_h=16, tile_w=128, backend="pallas", max_splats_per_tile=384,
+            max_tiles_per_splat=SHARD_BUDGET, splat_chunk=128,
+            quantized_depth_sort=True, deepening_passes=6,
+            deepening_fraction=0.34)),
+        "converged": ("alltoall", dataclasses.replace(
+            auto_render_config(n, w, h), max_tiles_per_splat=SHARD_BUDGET,
+            big_splat_budget=0, tail_depth_beta=BETA)),
+    }
+
+
+def _registers(kernel, earlier):
+    """{instance: (registers, the earlier form's)} of the unweighted
+    instances of a tail kernel (cuobjdump; {} without it)."""
+    from fourdgs_torch.tools import earlier_forms as EF
+    new, old = EF.resource_usage(kernel), EF.resource_usage(earlier)
+
+    def key(name):
+        inst = name.split("<", 1)[1].split(">", 1)[0] if "<" in name else ""
+        return inst.replace(", false", "").replace(" ", "")
+    old = {key(k): v for k, v in old.items()}
+    return {key(k): (v, old.get(key(k))) for k, v in new.items()
+            if ", false>" in k}
+
+
+def phase_weighted_tail(tag, calls_fwd, calls_bwd, earlier):
+    """K7 at the weighted frame's two streams and K9 at its grad step's,
+    against their plain versions (K7's and K9's tolerances); at the same
+    inputs unweighted, K9 bit-equal to its earlier form and K7 within K7's
+    tolerance of its earlier form (its atomics add in no fixed order), and
+    both kernels' unweighted instances with the earlier forms' registers."""
+    import torch
+    import torch.nn.functional as F
+    from fourdgs_torch.ops import tail_cuda as TL
+    from fourdgs_torch.tools import earlier_forms as EF
+    e7, e9 = earlier
+    regs7 = _registers(TL.TAIL_ACCUMULATE, e7)
+    regs9 = _registers(TL.TAIL_ACCUMULATE_BWD, e9)
+    for what, regs in (("K7", regs7), ("K9", regs9)):
+        check(all(a == b for a, b in regs.values()),
+              f"{tag} {what}: unweighted instances' registers {regs} differ "
+              f"from the earlier form's")
+    results, lines, sites = {}, [], []
+    check(len(calls_fwd) == 2, f"{tag} K7: {len(calls_fwd)} calls, want 2")
+    for label, (args, kw) in zip(("main", "big"), calls_fwd):
+        fields, meta, band, rect, cut, params_row = args
+        check(kw.get("wd_ab") is not None, f"{tag} K7 {label}: no weights")
+        npts = meta.shape[1]
+        fields_p = F.pad(fields, (0, npts - fields.shape[1]))
+        st = {k: kw[k] for k in ("k_bands", "nx", "ny", "chunk", "budget",
+                                 "s_cy", "s_cx", "exact_clip")}
+        st["budget_lo"] = kw.get("budget_lo", 0)
+
+        def k7():
+            return TL.tail_accumulate(*args, **kw)
+
+        def k7_plain():
+            return TL.tail_accumulate_plain(fields_p, meta, band, cut,
+                                            params_row, **st,
+                                            **weighting_kw(kw))
+        got, want = k7(), k7_plain()
+        unw = TL.tail_accumulate(*args, **dict(kw, wd_ab=None, alpha_pow=0))
+        old = EF.tail_accumulate(e7, fields, meta, band, cut, params_row,
+                                 kw.get("slot_mask"), **st)
+        torch.cuda.synchronize()
+        for what, g, w in (("weighted vs plain", got, want),
+                           ("unweighted vs earlier form", unw, old)):
+            d = (g - w).abs()
+            bad = d > K7_ATOL * max(1.0, float(w.abs().max())) \
+                + K7_RTOL * w.abs()
+            check(not bool(bad.any()), f"{tag} K7 {label} {what}: "
+                  f"{int(bad.sum())} entries outside {K7_RTOL:g} rel + "
+                  f"{K7_ATOL:g} of max |acc|, max |d| {float(d.max()):.3e}")
+        check(label == "big" or float((got - unw).abs().max()) > 0,
+              f"{tag} K7 {label}: the weights changed nothing")
+        err = float((got - want).abs().max())
+        ms = cuda_ms(k7, tail_reps(npts))
+        unw_ms = cuda_ms(lambda: TL.tail_accumulate(
+            *args, **dict(kw, wd_ab=None, alpha_pow=0)), tail_reps(npts))
+        plain_ms = cuda_ms(k7_plain, 2, warmup=1)
+        where = f"{label}: {npts:,} splats, chunk {st['chunk']}"
+        sites.append(dict(site(
+            where, err, ms, plain_ms,
+            nbytes(fields, meta, band, rect, cut, params_row,
+                   kw.get("slot_mask"), kw.get("wd_ab"), got),
+            tail_slots(meta, st["budget_lo"], st["budget"])
+            * st["s_cy"] * st["s_cx"] * PAIR_TEST_OPS), unweighted_ms=unw_ms))
+        lines.append(f"{where}: max |d| {err:.3e} (|acc| max "
+                     f"{float(want.abs().max()):.3e}); kernel {ms:.3f} ms, "
+                     f"unweighted {unw_ms:.3f} ms, plain {plain_ms:.3f} ms")
+    results["K7 tail_accumulate"] = _sites(sites)
+    print(f"{tag} K7 tail_accumulate at tail_depth_beta {BETA:g} (K7's "
+          f"tolerance, relative to |acc| max as the weights reach e^8); "
+          f"unweighted at the same inputs within it of the earlier form; "
+          f"unweighted instances' registers {json.dumps(regs7)}: "
+          + "; ".join(lines))
+    sites, lines = [], []
+    for (args, kw) in calls_bwd:
+        fields, meta, band, cut, params_row, d_acc, mask = args
+        label = "big" if kw["budget_lo"] > 0 else "main"
+        st = {k: kw[k] for k in ("k_bands", "nx", "ny", "chunk", "budget",
+                                 "s_cy", "s_cx", "budget_lo", "exact_clip")}
+
+        def k9():
+            return TL.tail_accumulate_bwd(*args, **kw)
+
+        def k9_plain():
+            return TL.tail_accumulate_bwd_plain(
+                fields, meta, band, cut, params_row, d_acc, **st,
+                **weighting_kw(kw))
+        got, again, want = k9(), k9(), k9_plain()
+        unw = TL.tail_accumulate_bwd(*args, **dict(kw, wd_ab=None,
+                                                   alpha_pow=0))
+        old = EF.tail_accumulate_bwd(e9, fields, meta, band, cut, params_row,
+                                     d_acc, mask, **{k: v for k, v in
+                                                     st.items()})
+        torch.cuda.synchronize()
+        check(label == "big" or float(want.abs().max()) > 0,
+              f"{tag} K9 {label}: no cotangent")
+        if float(want.abs().max()) > 0:
+            rel, err = _field_err(got, want, 0)
+        else:
+            rel = err = float(got.abs().max())
+        check(rel <= BWD_TOL, f"{tag} K9 {label}: {rel:.3e} of a field's "
+              f"max |d| > {BWD_TOL:g}")
+        check(torch.equal(got, again), f"{tag} K9 {label}: a second launch "
+              f"differs from the first")
+        check(torch.equal(unw, old), f"{tag} K9 {label}: unweighted differs "
+              f"from the earlier form")
+        ms = cuda_ms(k9, tail_reps(meta.shape[1]))
+        plain_ms = cuda_ms(k9_plain, 2, warmup=1)
+        where = f"{label}: {meta.shape[1]:,} splats, chunk {st['chunk']}"
+        sites.append(site(where, err, ms, plain_ms,
+                          nbytes(fields, meta, band, cut, params_row, d_acc,
+                                 mask, kw.get("wd_ab"), got),
+                          tail_slots(meta, st["budget_lo"], st["budget"])
+                          * st["s_cy"] * st["s_cx"] * PAIR_TEST_OPS))
+        lines.append(f"{where}: {rel:.3e} of max |d| (|d| max "
+                     f"{float(want.abs().max()):.3e}, max |d - plain| "
+                     f"{err:.3e}, {int((got != want).sum()):,} of "
+                     f"{got.numel():,} entries differ); kernel {ms:.3f} ms, "
+                     f"plain {plain_ms:.3f} ms")
+    results["K9 tail_accumulate_bwd"] = _sites(sites)
+    print(f"{tag} K9 tail_accumulate_bwd at tail_depth_beta {BETA:g} "
+          f"(tolerance {BWD_TOL:g} of each field's max |d|; two launches "
+          f"bit-equal; unweighted at the same inputs bit-equal to the "
+          f"earlier form; unweighted instances' registers "
+          f"{json.dumps(regs9)}): " + "; ".join(lines))
+    return results
+
+
+def phase_rowsort_alternating(tag, calls, earlier, kernels):
+    """K2 at the weighted frame's keys: the alternating form exactly against
+    plain (keys, values, live, dropped; a second launch bit-equal), the
+    ascending form bit-equal to the earlier form; the alternating form
+    driven once through the public rowsort_compact with every count set to
+    0 just before and read just after. Returns (results, launches)."""
+    import torch
+    from fourdgs_torch.ops import sort_cuda as S
+    from fourdgs_torch.tools import earlier_forms as EF
+    (key, val, keep), kw = calls[0]
+    row_len, cut, shift = kw["row_len"], kw["cut"], kw["key_shift"]
+    got = S._rowsort_compact_live(key, val, keep, row_len, cut, shift,
+                                  alternating=True)
+    again = S._rowsort_compact_live(key, val, keep, row_len, cut, shift,
+                                    alternating=True)
+    pk, pv, plive = S.rowsort_compact_plain(key, val, keep, row_len, cut,
+                                            shift, alternating=True)
+    asc = S._rowsort_compact_live(key, val, keep, row_len, cut, shift)
+    old = EF.rowsort_compact(earlier, key, val, keep, row_len, cut, shift)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], pk) and torch.equal(got[1], pv)
+          and torch.equal(got[2], plive)
+          and int(got[3]) == int(torch.clamp(plive - keep, min=0).sum()),
+          f"{tag} K2 alternating differs from plain")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{tag} K2 alternating: a second launch differs")
+    check(all(torch.equal(a, b) for a, b in zip(asc, old)),
+          f"{tag} K2 ascending differs from the earlier form")
+    odd = got[0][:, 1::2].long()
+    check(bool((odd[1:] <= odd[:-1]).all()), f"{tag} K2: odd rows not "
+          f"descending")
+    for k in kernels.values():
+        k.launches = 0
+    S.rowsort_compact(key, val, keep, row_len, cut, shift, alternating=True)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    check(launches["K2 rowsort_compact"] == 1, f"{tag} K2: "
+          f"{launches['K2 rowsort_compact']} launches, want 1")
+    ms = cuda_ms(lambda: S.rowsort_compact(key, val, keep, row_len, cut,
+                                           shift, alternating=True), 20)
+    asc_ms = cuda_ms(lambda: S.rowsort_compact(key, val, keep, row_len, cut,
+                                               shift), 20)
+    plain_ms = cuda_ms(lambda: S.rowsort_compact_plain(
+        key, val, keep, row_len, cut, shift, alternating=True), 5)
+    stages = row_len.bit_length() * (row_len.bit_length() - 1) // 2
+    moved, _ = _k2_moved(key, keep, row_len, cut, shift, got[0], got[2])
+    res = site(f"{key.shape[0]:,} slots, keep {keep}, cut, alternating", 0.0,
+               ms, plain_ms, moved,
+               got[0].shape[1] * (row_len // 2) * stages * CMPX_OPS)
+    res["ascending_ms"] = asc_ms
+    print(f"{tag} K2 rowsort_compact(alternating=True) at the frame's "
+          f"{key.shape[0]:,} slots (row_len {row_len}, keep {keep}): keys, "
+          f"values, live and dropped ({int(got[3]):,}) equal plain exactly, "
+          f"odd rows descending, a second launch bit-equal; the ascending "
+          f"form bit-equal to the earlier form; kernel {ms:.3f} ms, "
+          f"ascending {asc_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{res['bound_ms']:.3f} ms ({res['bound_by']})")
+    return {"K2 rowsort_compact": _sites([res])}, launches
+
+
+def phase_beta_frame(dev, params, camera, kernels, converged_frame,
+                     med_default):
+    """(v1), (v2): the 10M converged 1080p frame at tail_depth_beta = 8.
+    K7 (both streams) and K9 at its inputs, K2's alternating form at its
+    keys; 20K frames at tail_alpha_power 1 and at tail_depth_beta 8, card
+    against CPU; the frame and the grad step timed."""
+    import dataclasses
+
+    import torch
+    from fourdgs_torch.ops import tail_cuda
+    from fourdgs_torch.render import tiles as TT
+    from fourdgs_torch.render.autoconfig import auto_render_config
+    from fourdgs_torch.tools import earlier_forms as EF
+
+    e7, e9 = EF.tail_kernels()
+    e2 = EF.rowsort_kernel()
+    cfg = dataclasses.replace(auto_render_config(N_FULL, W_FULL, H_FULL),
+                              tail_depth_beta=BETA)
+    t0 = time.time()
+    cap = capture_kernel_inputs(params, camera, cfg,
+                                [(tail_cuda, "tail_accumulate"),
+                                 (TT, "rowsort_compact")])
+    cap_b = capture_kernel_inputs(params, camera, cfg,
+                                  [(tail_cuda, "tail_accumulate_bwd")],
+                                  t=T_GRAD, grad=True)
+    torch.cuda.synchronize()
+    print(f"    tail_depth_beta {BETA:g} captures {time.time() - t0:.1f} s")
+    path = f"converged, tail_depth_beta {BETA:g}"
+    results = {path: phase_weighted_tail(
+        "(v1)", cap["tail_cuda.tail_accumulate"],
+        cap_b["tail_cuda.tail_accumulate_bwd"], (e7, e9))}
+    step_path = f"converged grad step, tail_depth_beta {BETA:g}"
+    results[step_path] = {"K9 tail_accumulate_bwd":
+                          results[path].pop("K9 tail_accumulate_bwd")}
+    alt_path = "rowsort_compact(alternating=True)"
+    results[alt_path], alt_launches = phase_rowsort_alternating(
+        "(v2)", cap["tiles.rowsort_compact"], e2, kernels)
+    del cap, cap_b
+    torch.cuda.empty_cache()
+    for over in (dict(tail_alpha_power=1), dict(tail_depth_beta=BETA)):
+        phase_small_frame(dev, converged=True, tag="(v1)", **over)
+    torch.cuda.empty_cache()
+    launches = {alt_path: alt_launches}
+    launches[path], _, med, _ = phase_full_frame(
+        "(v1)", params, camera, cfg, kernels, converged_frame,
+        TIMED_FRAMES_CONVERGED)
+    print(f"(v1) the tail_depth_beta {BETA:g} frame median {med:.2f} ms "
+          f"beside phase (i)'s unweighted frame {med_default:.2f} ms in this "
+          f"run")
+    launches[step_path], step = phase_grad_step(
+        params, camera, cfg, kernels,
+        dict(converged_frame, **{"K8 composite_bwd": 1,
+                                 "K9 tail_accumulate_bwd": 2}),
+        TIMED_STEPS, tag="(v1)")
+    torch.cuda.empty_cache()
+    return results, launches, dict(frame_ms=med, **step)
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _driven(kernels, fn):
+    """fn() with every launch count set to 0 just before; (its result, the
+    counts just after)."""
+    import torch
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def _shard_render(D, exchange, splats, cam, t, mesh, cfg, budget):
+    if exchange == "allgather":
+        return D.render_splats4d_sharded(splats, cam, t, mesh, cfg=cfg), {}
+    return D.render_splats4d_sharded_alltoall(
+        splats, cam, t, mesh, cfg=cfg, send_budget=budget, return_aux=True)
+
+
+def _converged_bounds(tag, img_sh, img_ref, th, tw, hold_p99=True):
+    """The reference's bounds of the sharded converged frame against the
+    single-chip one (tests/test_parallel.py): means, mean |d|, p99 (where
+    hold_p99), seams."""
+    import torch
+    d = (img_sh[..., :3] - img_ref[..., :3]).abs()
+    m_sh, m_ref = float(img_sh[..., :3].mean()), float(img_ref[..., :3].mean())
+    dm = d.mean(-1)
+    p99 = float(torch.quantile(dm.flatten().float()[::7], 0.99))
+    ys = torch.arange(dm.shape[0], device=dm.device)[:, None]
+    xs = torch.arange(dm.shape[1], device=dm.device)[None, :]
+    border = ((ys % th == 0) | (ys % th == th - 1) | (xs % tw == 0)
+              | (xs % tw == tw - 1))
+    b_err, i_err = float(dm[border].mean()), float(dm[~border].mean())
+    check(abs(m_sh - m_ref) < 0.01 * max(m_ref, 0.01) + 1e-4
+          and float(d.mean()) < 0.01 and (p99 < 0.05 or not hold_p99)
+          and b_err < 2.0 * i_err + 1e-4,
+          f"{tag} converged sharded vs single chip: means {m_sh:.5f} / "
+          f"{m_ref:.5f}, mean |d| {float(d.mean()):.3e}, p99 {p99:.3e}, "
+          f"border {b_err:.3e} vs interior {i_err:.3e}")
+    return (f"means {m_sh:.5f} / {m_ref:.5f}, mean |d| "
+            f"{float(d.mean()):.3e}, p99 {p99:.3e}, border {b_err:.3e} "
+            f"vs interior {i_err:.3e}")
+
+
+def phase_sharded(dev, kernels):
+    """(v3)-(v5): the sharded layer at world size 1, in a process group of
+    one rank (gloo for CPU tensors, NCCL for the card's) made here and
+    ended after. Returns (results, launches, numbers)."""
+    import torch.distributed as dist
+    from fourdgs_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        out = _sharded_full(dev, kernels, mesh)
+        _sharded_small(dev, mesh)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_full(dev, kernels, mesh):
+    import dataclasses
+
+    import torch
+    from fourdgs_torch.core.camera import Camera
+    from fourdgs_torch.ops import composite_cuda, tail_cuda
+    from fourdgs_torch.parallel import distributed as D
+    from fourdgs_torch.render import pipeline as TP
+    from fourdgs_torch.scenes.cube import CUBE_CAMERA
+    from fourdgs_torch.entry import dryrun_multichip
+
+    results, launches, numbers = {}, {}, {}
+    t0 = time.time()
+    params = cube_trainer_params(SHARD_N, 0, dev)
+    cam = Camera.create(**CUBE_CAMERA, width=W_FULL, height=H_FULL,
+                        device=dev)
+    cfgs = shard_cfgs(SHARD_N, W_FULL, H_FULL)
+    splats = D.materialize_splats(params)
+    print(f"(v3) world size 1 (one rank, gloo for CPU tensors and NCCL for "
+          f"the card's), mesh {tuple(mesh.mesh.shape)}; {SHARD_N:,}-splat "
+          f"cube {W_FULL}x{H_FULL}: scene {time.time() - t0:.1f} s")
+    t = torch.tensor(0.0, device=dev)
+    for mode, (exchange, cfg) in cfgs.items():
+        tag = f"(v3) {mode}"
+        budget = None
+        if exchange == "alltoall":
+            budget = D.required_send_budget(splats, cam, mesh, cfg, t=0.0)
+        def render(c=cfg):
+            return _shard_render(D, exchange, splats, cam, t, mesh, c,
+                                 budget)
+        with torch.no_grad():
+            (img, aux), lau = _driven(kernels, render)
+            want_k = {"K1 composite"}
+            if mode == "converged":
+                want_k |= {"K5 pack_meta_rows", "K7 tail_accumulate"}
+            for name in want_k:
+                check(lau[name] > 0, f"{tag}: {name} not launched")
+            aux = {k: int(v) for k, v in aux.items()}
+            check(aux.get("pairs_dropped", 0) == 0
+                  and aux.get("overflowed", 0) == 0,
+                  f"{tag}: pairs lost under the required budget: {aux}")
+            ref = TP.render_splats4d(splats, cam, t, cfg=cfg)
+            check(bool(torch.isfinite(img).all())
+                  and float(img[..., :3].mean()) > 0.01, f"{tag}: bad image")
+            if mode == "converged":
+                # The reference's bounds of its 1,024-splat test scene,
+                # but for the per-pixel p99, which is reported: at this
+                # size the two routes' band cuts (a 2,048-entry sample of
+                # the shard, a 1/64 block sample on one chip) put about 1%
+                # of the pixels 0.05-0.06 apart, with and without the
+                # depth weight (ROADMAP C-R14); beta 0 shows the gap is not
+                # the weight's.
+                cfg0 = dataclasses.replace(cfg, tail_depth_beta=0.0)
+                how0 = _converged_bounds(
+                    tag + " beta 0", render(cfg0)[0],
+                    TP.render_splats4d(splats, cam, t, cfg=cfg0),
+                    cfg.tile_h, cfg.tile_w, hold_p99=False)
+                how = (f"beta 0: {how0}; beta {BETA:g}: " + _converged_bounds(
+                    tag, img, ref, cfg.tile_h, cfg.tile_w, hold_p99=False))
+            else:
+                err = float((img - ref).abs().max())
+                check(err <= 3e-5, f"{tag}: max |d| {err:.3e} against the "
+                      f"single-chip frame > 3e-5")
+                how = f"max |d| {err:.3e} (bound 3e-5)"
+            targets = [(TP, "composite_records")]
+            if cfg.deepening_passes > 1:
+                targets.append((TP, "composite_records_at"))
+            if mode == "converged":
+                targets.append((tail_cuda, "tail_accumulate"))
+            cap = capture_calls(render, targets)
+            ms = statistics.median(cuda_ms(render, 1, 1) for _ in range(3))
+        path = f"sharded {mode}, world size 1"
+        res = {"K1 composite": phase_composite(
+            tag, cap["pipeline.composite_records"],
+            cap.get("pipeline.composite_records_at", ()))}
+        if mode == "converged":
+            res["K7 tail_accumulate"] = _k7_sites(
+                tag, cap["tail_cuda.tail_accumulate"])
+        results[path], launches[path] = res, lau
+        numbers[f"{mode}_frame_ms"] = ms
+        print(f"{tag}: {how} against render_splats4d at the same config; aux "
+              f"{json.dumps(aux)}"
+              f"{f', send budget {budget}' if budget else ''}"
+              f"; frame median {ms:.2f} ms; launches {json.dumps(lau)}")
+        del cap
+        torch.cuda.empty_cache()
+
+    # (v4) the three sharded train steps, then fit_sharded.
+    target = torch.zeros((H_FULL, W_FULL, 4), device=dev)
+    for mode, (exchange, cfg) in cfgs.items():
+        tag = f"(v4) {mode}"
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        budget = None
+        if exchange == "alltoall":
+            budget = D.required_send_budget(splats, cam, mesh, cfg,
+                                            t=T_GRAD)
+        step = D.make_sharded_train_step(cam, mesh, D.adam(p, 1e-3), cfg,
+                                         exchange=exchange,
+                                         send_budget=budget)
+        targets = [(composite_cuda, "composite_records_bwd")]
+        if mode == "converged":
+            targets.append((tail_cuda, "tail_accumulate_bwd"))
+        cap = capture_calls(lambda: step(p, target, T_GRAD), targets)
+        loss, lau = _driven(kernels, lambda: step(p, target, T_GRAD))
+        check(bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(v).all()) for v in p.values()),
+            f"{tag}: loss or parameters not finite")
+        check(lau["K8 composite_bwd"] > 0 and (
+            mode != "converged" or lau["K9 tail_accumulate_bwd"] == 1),
+            f"{tag}: launches {lau}")
+        path = f"sharded {mode} train step, world size 1"
+        results[path] = phase_backward_kernels(
+            tag, cap["composite_cuda.composite_records_bwd"],
+            cap.get("tail_cuda.tail_accumulate_bwd", []))
+        launches[path] = lau
+        del cap
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(p, target, T_GRAD)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        numbers[f"{mode}_step_ms"] = statistics.median(times)
+        numbers[f"{mode}_step_peak_gib"] = peak
+        print(f"{tag}: loss {float(loss):.6f}, step median "
+              f"{statistics.median(times):.2f} ms "
+              f"[{', '.join(f'{x:.2f}' for x in times)}], peak memory "
+              f"{peak:.2f} GiB; launches {json.dumps(lau)}")
+        del p, step
+        torch.cuda.empty_cache()
+    exchange, cfg = cfgs["converged"]
+    t0 = time.time()
+    _, losses, budget = D.fit_sharded(
+        params, cam, mesh, target, steps=5, t=T_GRAD, cfg=cfg,
+        learning_rate=5e-3, check_every=5,
+        send_budget=D.required_send_budget(splats, cam, mesh, cfg,
+                                           t=T_GRAD))
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    check(len(losses) == 5 and all(x == x and abs(x) < 1e30 for x in losses),
+          f"(v4) fit_sharded losses {losses}")
+    numbers["fit_sharded_5_steps_s"] = fit_s
+    print(f"(v4) fit_sharded, converged at tail_depth_beta {BETA:g}, 5 steps "
+          f"(budget {budget}): losses {[round(x, 6) for x in losses]}, "
+          f"{fit_s:.2f} s with its budget probe")
+    del splats
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    dry = dryrun_multichip(1)
+    check(len(dry) == 3, f"(v4) dryrun_multichip(1): {dry}")
+    print(f"(v4) fourdgs_torch.entry.dryrun_multichip(1): {json.dumps(dry)} "
+          f"in {time.time() - t0:.1f} s")
+    return results, launches, numbers
+
+
+def _k7_sites(tag, calls):
+    """K7 at the sharded converged frame's call (my own chunks) against its
+    plain version."""
+    import torch
+    import torch.nn.functional as F
+    from fourdgs_torch.ops import tail_cuda as TL
+    sites = []
+    for args, kw in calls:
+        fields, meta, band, rect, cut, params_row = args
+        st = {k: kw[k] for k in ("k_bands", "nx", "ny", "chunk", "budget",
+                                 "s_cy", "s_cx", "exact_clip")}
+        st["budget_lo"] = kw.get("budget_lo", 0)
+        fields_p = F.pad(fields, (0, meta.shape[1] - fields.shape[1]))
+
+        def plain():
+            return TL.tail_accumulate_plain(fields_p, meta, band, cut,
+                                            params_row, **st,
+                                            **weighting_kw(kw))
+        got, want = TL.tail_accumulate(*args, **kw), plain()
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        bad = d > K7_ATOL * max(1.0, float(want.abs().max())) \
+            + K7_RTOL * want.abs()
+        check(not bool(bad.any()) and float(want.abs().sum()) > 0,
+              f"{tag} K7: {int(bad.sum())} entries outside tolerance, max "
+              f"|d| {float(d.max()):.3e}")
+        ms = cuda_ms(lambda: TL.tail_accumulate(*args, **kw),
+                     tail_reps(meta.shape[1]))
+        plain_ms = cuda_ms(plain, 2, warmup=1)
+        sites.append(site(
+            f"{meta.shape[1]:,} splats, chunk {st['chunk']}",
+            float(d.max()), ms, plain_ms,
+            nbytes(fields, meta, band, rect, cut, params_row,
+                   kw.get("slot_mask"), kw.get("wd_ab"), got),
+            tail_slots(meta, st["budget_lo"], st["budget"])
+            * st["s_cy"] * st["s_cx"] * PAIR_TEST_OPS))
+        print(f"{tag} K7 tail_accumulate (my chunks, tail_depth_beta "
+              f"{kw.get('wd_ab') is not None and BETA}): max |d| "
+              f"{float(d.max()):.3e}; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms")
+    return _sites(sites)
+
+
+def _sharded_small(dev, mesh):
+    """(v5): 20K frames and gradients of the three sharded modes at world
+    size 1. Card against CPU: frames under the tie tolerance (mean < 1e-4,
+    fewer than 1% of pixels above 1e-3) and losses within 1e-5 relative;
+    the gradients card against CPU are reported beside the single-chip
+    path's own (the dataclass splats' scale3 gradient differs between the
+    devices for both, ROADMAP C-R15). On the card, the non-converged modes'
+    sharded loss and gradients against the single-chip ones of the same
+    config, within 1e-5 and 1e-4 of each field's max (the same
+    arithmetic)."""
+    import torch
+    from fourdgs_torch.core.camera import Camera
+    from fourdgs_torch.parallel import distributed as D
+    from fourdgs_torch.render import pipeline as TP
+    from fourdgs_torch.scenes.cube import CUBE_CAMERA
+
+    params = cube_trainer_params(N_SMALL, 1, dev)
+    params_c = {k: v.cpu() for k, v in params.items()}
+    cams = {str(d): Camera.create(**CUBE_CAMERA, width=W_SMALL,
+                                  height=H_SMALL, device=d)
+            for d in (dev, "cpu")}
+    npx = H_SMALL * W_SMALL * 3
+
+    def grads(p0, d, fn):
+        p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        loss = fn(p, torch.full((H_SMALL, W_SMALL, 4), 0.05, device=d))
+        loss.backward()
+        return float(loss.detach()), {k: v.grad.cpu() for k, v in p.items()}
+
+    def field_errs(got, want):
+        out = {}
+        for k in want:
+            scale = float(want[k].abs().max())
+            check(scale > 0, f"(v5) zero gradient of {k}")
+            e = ((got[k] - want[k]).abs().reshape(want[k].shape[0], -1)
+                 .amax(1) / scale)
+            out[k] = (float(e.mean()), float((e > 1e-3).float().mean()),
+                      float(e.max()))
+        return out
+    lines = []
+    for mode, (exchange, cfg) in shard_cfgs(N_SMALL, W_SMALL,
+                                            H_SMALL).items():
+        tag = f"(v5) {mode}"
+        out = {}
+        for d, p0 in ((dev, params), ("cpu", params_c)):
+            d = str(d)
+            with torch.no_grad():
+                img, aux = _shard_render(D, exchange,
+                                         D.materialize_splats(p0), cams[d],
+                                         T_GRAD, mesh, cfg, None)
+            loss_fn = D.make_sharded_loss(cams[d], mesh, cfg,
+                                          exchange=exchange)
+            out[d] = (img.cpu(), {k: int(v) for k, v in aux.items()},
+                      *grads(p0, d, lambda p, tg: loss_fn(p, tg, T_GRAD)))
+        (ig, ag, lg, gg), (ic, ac, lc, gc_) = out[str(dev)], out["cpu"]
+        err = (ig - ic).abs().amax(-1)
+        check(float(err.mean()) < 1e-4 and float((err > 1e-3).float()
+                                                  .mean()) < 0.01,
+              f"{tag}: frame card vs CPU mean |d| {float(err.mean()):.3e}")
+        check(ag == ac, f"{tag}: aux card {ag} vs CPU {ac}")
+        check(abs(lg - lc) <= 1e-5 * abs(lc), f"{tag}: loss card {lg} vs "
+              f"CPU {lc}")
+        dev_errs = field_errs(gg, gc_)
+
+        def single_on(d):
+            def single(p, tg):
+                img = TP.render_splats4d(D.materialize_splats(p), cams[d],
+                                         T_GRAD, cfg=cfg)
+                return ((img[..., :3] - tg[..., :3]) ** 2).sum() / npx
+            return single
+        ls, gs = grads(params, dev, single_on(str(dev)))
+        _, gs_c = grads(params_c, "cpu", single_on("cpu"))
+        single_errs = field_errs(gs, gs_c)
+        if mode != "converged":
+            # The converged routes differ by design (band cuts, the head's
+            # prune, C-R14): their losses and gradients are not compared.
+            check(abs(lg - ls) <= 1e-5 * abs(ls), f"{tag}: sharded loss "
+                  f"{lg} vs single chip {ls}")
+            for k, (_, _, mx) in field_errs(gg, gs).items():
+                check(mx <= 1e-4, f"{tag}: gradient of {k}, sharded vs "
+                      f"single chip on the card: {mx:.3e} of its max")
+        lines.append(
+            f"{mode}: frame mean |d| {float(err.mean()):.3e}, loss rel "
+            f"{abs(lg - lc) / abs(lc):.2e}, sharded vs single-chip loss rel "
+            f"{abs(lg - ls) / abs(ls):.2e}; gradients card vs CPU per field "
+            f"(mean, share > 1e-3, max of a splat / field max), sharded "
+            + json.dumps({k: [float(f"{x:.3e}") for x in v]
+                          for k, v in dev_errs.items()})
+            + ", single chip "
+            + json.dumps({k: [float(f"{x:.3e}") for x in v]
+                          for k, v in single_errs.items()}))
+    print(f"(v5) {N_SMALL:,} splats {W_SMALL}x{H_SMALL} at t={T_GRAD}, "
+          f"target 0.05: " + "; ".join(lines))
+
 def build_kernels(kernels):
     """Build every kernel: one nvcc per source file, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3548,6 +4242,7 @@ def main() -> int:
                                            build_cube_scene,
                                            converged_cube_scene)
 
+    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3584,8 +4279,11 @@ def main() -> int:
     from fourdgs_torch.tools.prepass_split import (block_chunk_kernel,
                                                    word_kernels)
     from fourdgs_torch.tools.sort_split import shared_stage_kernels
+    from fourdgs_torch.tools import earlier_forms
     build_kernels(list(kernels.values()) + list(shared_stage_kernels())
-                  + [block_chunk_kernel(), *word_kernels()])
+                  + [block_chunk_kernel(), *word_kernels(),
+                     *earlier_forms.tail_kernels(),
+                     earlier_forms.rowsort_kernel()])
     print(f"(a) {kind}, {torch.cuda.device_count()} visible, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built "
           f"in {time.time() - t0:.1f} s")
@@ -3720,6 +4418,13 @@ def main() -> int:
         dict(converged_frame, **{"K8 composite_bwd": 1,
                                  "K9 tail_accumulate_bwd": 2}), TIMED_STEPS)
     torch.cuda.empty_cache()
+    # (v1), (v2): the within-band weighting at the 10M converged frame, and
+    # K2's alternating rows at its keys.
+    res, lau, beta = phase_beta_frame(dev, params, camera, kernels,
+                                      converged_frame, med_default)
+    results.update(res)
+    launches.update(lau)
+    torch.cuda.empty_cache()
 
     # The kernel-sorted frame: sort_backend="pallas" with a power-of-two
     # keep. The prune runs as its own pass (K10), the slots are compacted by
@@ -3850,6 +4555,15 @@ def main() -> int:
     res, lau = phase_viewer(dev, kernels)
     results.update(res)
     launches.update(lau)
+    torch.cuda.empty_cache()
+    # The sharded layer: (v3) renders, (v4) train steps, fit_sharded and the
+    # dry run, (v5) card against CPU, in a process group of one rank.
+    t_v = time.time()
+    res, lau, sharded = phase_sharded(dev, kernels)
+    results.update(res)
+    launches.update(lau)
+    print(f"(v3)-(v5) {time.time() - t_v:.1f} s; the whole script "
+          f"{time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         dict(name=f"{name} [{path}]", path=path, route="cuda",
@@ -3857,7 +4571,9 @@ def main() -> int:
              launches=launches[path][name], **res)
         for path, by_kernel in results.items()
         for name, res in sorted(by_kernel.items())],
-        "grad_step": grad_step}))
+        "grad_step": grad_step, "tail_depth_beta_8": beta,
+        "sharded_world_size_1": sharded,
+        "script_s": time.time() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

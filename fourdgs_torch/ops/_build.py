@@ -21,6 +21,7 @@ machine without `nvcc` or a card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -81,6 +82,16 @@ def load_library(source: str, extra_flags=()) -> ctypes.CDLL:
     return lib
 
 
+def launch_device(args, symbol: str = "kernel"):
+    """The one device of the tensors among `args` (None without tensors);
+    tensors on two devices or more raise ValueError."""
+    devices = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devices) > 1:
+        raise ValueError(f"{symbol}: tensor arguments span devices "
+                         f"{sorted(str(d) for d in devices)}")
+    return devices.pop() if devices else None
+
+
 class CudaKernel:
     """One C entry point of a `csrc/` source, with its launch count.
 
@@ -110,10 +121,21 @@ class CudaKernel:
         travels as its data pointer and None as a null pointer. The tensors
         (often temporary copies made by the caller) stay referenced until
         the launch is queued; a pointer taken from a temporary that is freed
-        before the launch can alias the next temporary's block."""
+        before the launch can alias the next temporary's block.
+
+        The launch runs on the device of the tensor arguments, whatever the
+        thread's current device is (an entry that sizes its grid from
+        cudaGetDevice then reads that device); tensors on different devices
+        raise ValueError before anything is launched. `stream` must belong
+        to that device (the wrappers take the current stream of their
+        tensors' device)."""
+        dev = launch_device(args, self.symbol)
         ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                 for a in args]
-        err = self.build()(*ptrs, stream)
+        ctx = (torch.cuda.device(dev) if dev is not None
+               and dev.type == "cuda" else contextlib.nullcontext())
+        with ctx:
+            err = self.build()(*ptrs, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{err}")

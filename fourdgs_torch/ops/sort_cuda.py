@@ -1,7 +1,7 @@
 """The pair-sort kernels (port of fourdgs/ops/sort_pallas.py): the
-strided-row sort + keep with the fused prune cut (`rowsort_compact`,
-ascending rows only) and the bitonic merge of sorted rows into one sorted
-array (`merge_sorted_rows`).
+strided-row sort + keep with the fused prune cut (`rowsort_compact`, rows
+ascending or, alternating, odd rows descending) and the bitonic merge of
+sorted rows into one sorted array (`merge_sorted_rows`).
 
 Kernel K2 (`csrc/rowsort.cu`) and kernels K11-K13 (`csrc/merge.cu`), each
 with its plain PyTorch version. A CPU tensor runs the plain versions; a CUDA
@@ -48,7 +48,7 @@ ROWSORT = CudaKernel(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p])
+     ctypes.c_void_p, ctypes.c_int])
 MERGE_TREE = CudaKernel(
     "merge.cu", "fourdgs_merge_tree",
     [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -102,17 +102,29 @@ def _cut_rows(key, val, row_len: int, cut: Optional[torch.Tensor],
     return k2, v2
 
 
+def _alternate_rows(x: torch.Tensor) -> torch.Tensor:
+    """(keep, rows): the odd logical rows (columns) reversed."""
+    out = x.clone()
+    out[:, 1::2] = x[:, 1::2].flip(0)
+    return out
+
+
 def rowsort_compact_plain(key, val, keep_cols: int, row_len: int,
-                          cut: Optional[torch.Tensor], key_shift: int):
+                          cut: Optional[torch.Tensor], key_shift: int,
+                          alternating: bool = False):
     """Returns ((keep, rows) key, (keep, rows) val, (rows,) live): a stable
     sort of every row, equal keys in the order of their slots; a DEAD key
-    carries the value 0."""
+    carries the value 0. With `alternating` the odd rows come out
+    descending: the kept end of a descending row is its tail, the ascending
+    keep reversed."""
     k2, v2 = _cut_rows(key, val, row_len, cut, key_shift)
     live = (k2 != DEAD).sum(0, dtype=torch.int32)
     ks, order = torch.sort(k2, dim=0, stable=True)
     ks = ks[:keep_cols].contiguous()
-    vs = torch.gather(v2, 0, order[:keep_cols])
-    return ks, torch.where(ks == DEAD, 0, vs), live
+    vs = torch.where(ks == DEAD, 0, torch.gather(v2, 0, order[:keep_cols]))
+    if alternating:
+        ks, vs = _alternate_rows(ks), _alternate_rows(vs)
+    return ks, vs, live
 
 
 _ENTRY_PAD = 2 ** 63 - 1    # an empty list place: sorts after every entry
@@ -120,7 +132,7 @@ _ENTRY_PAD = 2 ** 63 - 1    # an empty list place: sorts after every entry
 
 def rowsort_compact_lists(key, val, keep_cols: int, row_len: int,
                           cut: Optional[torch.Tensor], key_shift: int,
-                          cap: int):
+                          cap: int, alternating: bool = False):
     """K2's walk written out: what `rowsort_compact_plain` returns, computed
     as the kernel computes it. A slot that survives the cut is appended as
     the entry (key << 32 | position in the row) to its row's list of `cap`
@@ -128,7 +140,8 @@ def rowsort_compact_lists(key, val, keep_cols: int, row_len: int,
     were appended then does not matter); a row with more than `cap` live
     slots is read again whole and sorted by the same entries; the first
     `keep_cols` entries give the keys, and the values are fetched from the
-    entries' positions."""
+    entries' positions; with `alternating` an odd row's c-th kept entry is
+    written to place keep - 1 - c."""
     if cap < keep_cols:
         raise ValueError(f"cap {cap} is below keep {keep_cols}")
     k2, v2 = _cut_rows(key, val, row_len, cut, key_shift)
@@ -154,12 +167,15 @@ def rowsort_compact_lists(key, val, keep_cols: int, row_len: int,
     ok = (kept >> 32).to(torch.int32)
     at = (kept & 0xFFFFFFFF).clamp(max=row_len - 1)
     ov = torch.where(ok == DEAD, 0, torch.gather(v2, 0, at))
+    if alternating:
+        ok, ov = _alternate_rows(ok), _alternate_rows(ov)
     return ok.contiguous(), ov.contiguous(), live
 
 
 def _rowsort_compact_live(key: torch.Tensor, val: torch.Tensor,
                           keep_cols: int, row_len: int,
-                          cut: Optional[torch.Tensor], key_shift: int):
+                          cut: Optional[torch.Tensor], key_shift: int,
+                          alternating: bool = False):
     """`rowsort_compact` with the rows' live counts: ((keep, rows) key,
     (keep, rows) val, (rows,) live slots after the cut, dropped)."""
     if row_len & (row_len - 1) or not 1 <= keep_cols <= row_len:
@@ -176,7 +192,7 @@ def _rowsort_compact_live(key: torch.Tensor, val: torch.Tensor,
         raise ValueError("key and val must share a device")
     if key.device.type == "cpu":
         ok, ov, live = rowsort_compact_plain(key, val, keep_cols, row_len,
-                                             cut, key_shift)
+                                             cut, key_shift, alternating)
         dropped = torch.clamp(live - keep_cols, min=0).sum(dtype=torch.int32)
     elif key.device.type == "cuda":
         s = key.shape[0]
@@ -192,7 +208,7 @@ def _rowsort_compact_live(key: torch.Tensor, val: torch.Tensor,
         ROWSORT(key, val, s, rows, row_len, keep_cols,
                 cut_c,
                 0 if cut_c is None else cut_c.shape[0], key_shift,
-                ok, ov, live, dropped,
+                ok, ov, live, dropped, int(alternating),
                 stream=torch.cuda.current_stream(key.device).cuda_stream)
     else:
         raise ValueError(f"unsupported device {key.device}")
@@ -201,7 +217,7 @@ def _rowsort_compact_live(key: torch.Tensor, val: torch.Tensor,
 
 def rowsort_compact(key: torch.Tensor, val: torch.Tensor, keep_cols: int,
                     row_len: int = 8192, cut: Optional[torch.Tensor] = None,
-                    key_shift: int = 20):
+                    key_shift: int = 20, alternating: bool = False):
     """Sort the rows = ceil(S / row_len) (rounded up to a multiple of 256)
     strided logical rows of the flat (S,) key/value arrays (row r holds
     key[r::rows]) and keep each row's first keep_cols. Returns ((keep, rows)
@@ -212,9 +228,12 @@ def rowsort_compact(key: torch.Tensor, val: torch.Tensor, keep_cols: int,
     sorting (key > cut[key >> key_shift] -> DEAD); `dropped` counts the live
     slots (after the cut) lost to the keep cap. Equal keys of a row keep
     the order of their slots (a stable sort); a DEAD key carries value 0.
+    alternating: odd rows (logical row index r) come out descending, their
+    kept end taken from the row's tail: the ascending keep reversed, as the
+    reference's `rowsort_compact(alternating=True)` leaves them.
     """
     ok, ov, _, dropped = _rowsort_compact_live(key, val, keep_cols, row_len,
-                                               cut, key_shift)
+                                               cut, key_shift, alternating)
     return ok, ov, dropped
 
 

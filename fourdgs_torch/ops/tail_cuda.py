@@ -1,5 +1,4 @@
-"""Streaming banded-OIT tail compositor (port of fourdgs/ops/tail_pallas.py,
-forward, without the within-band weighting knobs).
+"""Streaming banded-OIT tail compositor (port of fourdgs/ops/tail_pallas.py).
 
 The tail composites every (tile, splat) pair beyond the head's per-tile cut
 (key > cut) with no sort and no gather: splats stream in chunks (in Morton
@@ -9,6 +8,13 @@ kernel accumulates six order-independent planes
 
     A = sum(alpha), Ar/Ag/Ab = sum(alpha * rgb), A2 = sum(alpha^2),
     L = sum(log1p(-alpha)).
+
+Two knobs weight the mix within a band (the reference's `use_wd` and
+`alpha_pow` forms): with wd_ab (S, 2), the chunk's depth-weight
+coefficients (a, b) from `band_weight_coeffs`, a pair weighs w_d =
+exp(clip(a dbits + b, 0, 25)); with alpha_pow p, alpha^p more. The A, Ar,
+Ag, Ab and A2 planes then carry w_d alpha^(1+p) where they carried alpha;
+the L plane stays unweighted, so the band's transmittance is exact.
 
 `fold_upsample_tail` composites the bands front to back, upsamples the
 coarse field bilinearly and `blend_tail_under_head` puts it under the
@@ -58,6 +64,7 @@ CUT_ENTRIES = 2048                # cut table, padded with INT32_MAX
 MASK_BITS = 30                    # slot-mask bits; later slots stay live
 SUB = 512                         # pairs per slot-mask sub-block
 INT32_MAX = 2 ** 31 - 1
+_WD_CAP = 25.0                  # exponent clip of the depth weight: e^25
 # Pairs per batch of the plain accumulate: bounds its (pairs, samples)
 # temporaries on the card at the 10M-splat frame.
 PLAIN_BATCH_PAIRS = 1 << 20
@@ -70,10 +77,12 @@ TAIL_PREPASS = CudaKernel(
 PREPASS_THREADS = 256
 TAIL_ACCUMULATE = CudaKernel(
     "tail.cu", "fourdgs_tail_accumulate",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14, extra_flags=_FLAGS)
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int], extra_flags=_FLAGS)
 TAIL_ACCUMULATE_BWD = CudaKernel(
     "tail_bwd.cu", "fourdgs_tail_accumulate_bwd",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14, extra_flags=_FLAGS)
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int], extra_flags=_FLAGS)
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -178,6 +187,34 @@ def global_band_cuts(sample_keys, k_bands: int) -> torch.Tensor:
         torch.arange(1, k_bands, dtype=torch.int32, device=ds.device) * m,
         k_bands, rounding_mode="floor")
     return ds[torch.clamp(qs, max=ds.shape[0] - 1).long()]
+
+
+def global_band_extremes(sample_keys):
+    """(d_lo, d_hi) 0-d int32: the least and the greatest live depth bits of
+    a key sample (dead = INT32_MAX), the open ends of the first and last
+    band for band_weight_coeffs."""
+    d = sample_keys & ((1 << QUANT_DEPTH_BITS) - 1)
+    live = sample_keys != INT32_MAX
+    d_lo = torch.where(live, d, (1 << QUANT_DEPTH_BITS) - 1).amin()
+    d_hi = torch.where(live, d, 0).amax()
+    return d_lo.to(torch.int32), d_hi.to(torch.int32)
+
+
+def band_weight_coeffs(band_cuts, d_lo, d_hi, k_bands: int, beta: float):
+    """(K, 2) float32 rows [a, b] of the within-band depth weight: a pair of
+    band k weighs w_d = exp(clip(a[k] dbits + b[k], 0, 25)), 1 at the band's
+    far edge and e^beta at its near edge. band_cuts are global_band_cuts'
+    ascending negated quantiles, (d_lo, d_hi) global_band_extremes'."""
+    del k_bands                  # the rows follow from the cuts
+    cuts = band_cuts.to(torch.int32)
+    lo_edges = torch.cat([-cuts, torch.as_tensor(d_lo).to(cuts).reshape(1)])
+    hi_edges = torch.cat([torch.as_tensor(d_hi).to(cuts).reshape(1), -cuts])
+    lo = torch.minimum(lo_edges, hi_edges).to(torch.float32)
+    hi = torch.maximum(lo_edges, hi_edges).to(torch.float32)
+    # A float32 numerator, so the quotient is a true division.
+    a = lo.new_tensor(beta) / torch.clamp(hi - lo, min=1.0)
+    b = -a * lo
+    return torch.stack([a, b], dim=1)
 
 
 def tail_params_row(tile_h: int, tile_w: int, block, w: int, h: int, p00, p11,
@@ -390,7 +427,8 @@ def _strided_arg(x):
 def tail_accumulate_plain(fields, meta, band, cut, params_row, k_bands: int,
                           nx: int, ny: int, chunk: int, budget: int,
                           s_cy: int, s_cx: int, budget_lo: int = 0,
-                          exact_clip: bool = False):
+                          exact_clip: bool = False, wd_ab=None,
+                          alpha_pow: int = 0):
     """The reference's `tail_accumulate_xla` (f32, scatter-add), evaluated
     for the live pairs of PLAIN_BATCH_PAIRS splats at a time."""
     n_samp = s_cy * s_cx
@@ -404,12 +442,35 @@ def tail_accumulate_plain(fields, meta, band, cut, params_row, k_bands: int,
                                          nx, ny, chunk, budget, s_cy, s_cx,
                                          budget_lo, exact_clip):
         alpha = pair[-1]
+        wd = pair_depth_weights(wd_ab, meta[4, idx], idx // chunk,
+                                fields.dtype)
+        aw = _weighted_alpha(alpha, wd, alpha_pow)
         cr, cg, cb = f[6:9]
-        planes = torch.cat([alpha, alpha * cr[:, None],
-                            alpha * cg[:, None], alpha * cb[:, None],
-                            alpha * alpha, torch.log1p(-alpha)], dim=1)
+        planes = torch.cat([aw, aw * cr[:, None],
+                            aw * cg[:, None], aw * cb[:, None],
+                            aw * alpha, torch.log1p(-alpha)], dim=1)
         acc.index_add_(0, row, planes)
     return acc
+
+
+def pair_depth_weights(wd_ab, dbits, chunk_of, dtype):
+    """w_d = exp(clip(a dbits + b, 0, 25)) of pairs whose splats have depth
+    bits `dbits` and lie in chunks `chunk_of` (rows of wd_ab); None without
+    wd_ab."""
+    if wd_ab is None:
+        return None
+    ab = wd_ab.to(dtype)[chunk_of]
+    return torch.exp(torch.clamp(ab[:, 0] * dbits.to(dtype) + ab[:, 1], 0.0,
+                                 _WD_CAP))
+
+
+def _weighted_alpha(alpha, wd, alpha_pow: int):
+    """w_d alpha^(1+p), the weight of a sample in the A..A2 planes: alpha
+    itself without the knobs. alpha (L, n_samp), wd (L,) or None."""
+    aw = alpha if wd is None else alpha * wd[:, None]
+    for _ in range(alpha_pow):
+        aw = aw * alpha
+    return aw
 
 
 def _widening(f, bx2, by2):
@@ -504,15 +565,17 @@ def _live_pairs(fields, meta, band, cut, params_row, nx: int, ny: int,
 def tail_accumulate_bwd_plain(fields, meta, band, cut, params_row, d_acc,
                               k_bands: int, nx: int, ny: int, chunk: int,
                               budget: int, s_cy: int, s_cx: int,
-                              budget_lo: int = 0, exact_clip: bool = False):
+                              budget_lo: int = 0, exact_clip: bool = False,
+                              wd_ab=None, alpha_pow: int = 0):
     """d_fields (10, Np) of tail_accumulate under the cotangent d_acc (its
-    shape): the chain rule of the reference's `_tail_bwd_kernel` without
-    the weighting knobs. Each live pair reads its samples' plane cotangents
-    d_acc[row, plane * n_samp + sample] (the transposed one-hot), chains
-    them through alpha = min(gate w, 1 - 1e-6), w = exp(-(n0^2 + n1^2)),
-    n = e il m sqrt(32) to the fields, sums over samples and slots, and
-    then through the widening m = 1/sqrt(1 + c il^2), gate = a_eff m0 m1.
-    exact_clip gates coverage and carries no gradient."""
+    shape): the chain rule of the reference's `_tail_bwd_kernel`. Each live
+    pair reads its samples' plane cotangents d_acc[row, plane * n_samp +
+    sample] (the transposed one-hot), chains them through the planes
+    (w_d alpha^(1+p) with the weighting knobs), alpha = min(gate w,
+    1 - 1e-6), w = exp(-(n0^2 + n1^2)), n = e il m sqrt(32) to the fields,
+    sums over samples and slots, and then through the widening m = 1/sqrt(1
+    + c il^2), gate = a_eff m0 m1. exact_clip gates coverage and carries no
+    gradient, and wd_ab none (it comes from integer depth bits)."""
     n_samp = s_cy * s_cx
     d_planes = d_acc.reshape(-1, N_PLANES, n_samp)
     bx2, by2 = params_row[6], params_row[7]
@@ -522,16 +585,22 @@ def tail_accumulate_bwd_plain(fields, meta, band, cut, params_row, d_acc,
     for idx, row, f, pair in _live_pairs(fields, meta, band, cut, params_row,
                                          nx, ny, chunk, budget, s_cy, s_cx,
                                          budget_lo, exact_clip):
-        sums.index_add_(1, idx, _pair_cotangent_sums(f, pair, d_planes[row],
-                                                     bx2, by2))
+        wd = pair_depth_weights(wd_ab, meta[4, idx], idx // chunk,
+                                fields.dtype)
+        sums.index_add_(1, idx, _pair_cotangent_sums(
+            f, pair, d_planes[row], bx2, by2, wd, alpha_pow))
     return _widening_bwd(fields, sums, bx2, by2)
 
 
-def _pair_cotangent_sums(f, pair, d_rows, bx2, by2):
+def _pair_cotangent_sums(f, pair, d_rows, bx2, by2, wd=None,
+                         alpha_pow: int = 0):
     """(10, L): each live pair's cotangents summed over its samples, from
     its samples' plane cotangents d_rows (L, 6, n_samp): d gate, d sx, d sy,
     d(il0 m0) and d(il1 m1) before the sqrt(32), the direct d v0x and d v0y,
-    d r, g, b."""
+    d r, g, b. With the weighting knobs (wd (L,) the pairs' depth weights,
+    alpha_pow p) the planes' d/d alpha is (1 + p) alpha^p w_d (dA + dAr r +
+    dAg g + dAb b) + (2 + p) alpha^(1+p) w_d dA2, as the reference's
+    `_tail_bwd_kernel` chains it."""
     dx, dy, e0, e1, n0, n1, w, cov, aw, alpha = pair
     v0x, v0y, il0, il1 = (x[:, None] for x in f[2:6])
     _, _, m0, m1 = _widening(f, bx2, by2)
@@ -540,8 +609,21 @@ def _pair_cotangent_sums(f, pair, d_rows, bx2, by2):
     gate = (f[9] * (m0 * m1))[:, None]
     dA, dAr, dAg, dAb, dA2, dL = d_rows.unbind(1)
     cr, cg, cb = (x[:, None] for x in f[6:9])
-    d_alpha = (dA + dAr * cr + dAg * cg + dAb * cb + 2.0 * alpha * dA2
-               - dL / (1.0 - alpha))
+    if wd is None and not alpha_pow:
+        d_alpha = (dA + dAr * cr + dAg * cg + dAb * cb + 2.0 * alpha * dA2
+                   - dL / (1.0 - alpha))
+        alpha_w = alpha
+    else:
+        s1 = torch.ones_like(alpha)
+        for _ in range(alpha_pow):
+            s1 = s1 * alpha
+        core = ((1.0 + alpha_pow) * s1 * (dA + dAr * cr + dAg * cg + dAb * cb)
+                + (2.0 + alpha_pow) * s1 * alpha * dA2)
+        alpha_w = alpha * s1
+        if wd is not None:
+            core = core * wd[:, None]
+            alpha_w = alpha_w * wd[:, None]
+        d_alpha = core - dL / (1.0 - alpha)
     d_aw = torch.where(cov & (aw < ALPHA_MAX), d_alpha, 0.0)
     dqn = d_aw * gate * w * (-2.0)       # d w / d n_i = -2 n_i w
     dn0 = n0 * dqn
@@ -553,7 +635,7 @@ def _pair_cotangent_sums(f, pair, d_rows, bx2, by2):
         dn0 * e0, dn1 * e1,
         dn0 * dx * il0w - dn1 * dy * il1w,
         dn0 * dy * il0w + dn1 * dx * il1w,
-        dAr * alpha, dAg * alpha, dAb * alpha]).sum(dim=2)
+        dAr * alpha_w, dAg * alpha_w, dAb * alpha_w]).sum(dim=2)
 
 
 def _widening_bwd(fields, sums, bx2, by2):
@@ -662,10 +744,12 @@ def unit_worklists(meta, band, cut, slot_mask, k_bands: int, nx: int,
 def tail_accumulate_units(fields, meta, band, cut, params_row, k_bands: int,
                           nx: int, ny: int, chunk: int, budget: int,
                           s_cy: int, s_cx: int, budget_lo: int = 0,
-                          slot_mask=None, exact_clip: bool = False):
+                          slot_mask=None, exact_clip: bool = False,
+                          wd_ab=None, alpha_pow: int = 0):
     """tail_accumulate composed the way K7 composes it: unit by unit, the
     samples of the unit's listed pairs evaluated, and the covered ones
-    (alpha > 0) alone added to the accumulator."""
+    (alpha > 0) alone added to the accumulator, weighted there (the depth
+    weight from the splat's staged depth bits and its chunk's (a, b))."""
     n_samp = s_cy * s_cx
     ny_pad = ny_padded(ny)
     rows_per_band = nx * ny_pad
@@ -684,7 +768,10 @@ def tail_accumulate_units(fields, meta, band, cut, params_row, k_bands: int,
         row = (int(band[u * unit // chunk]) * rows_per_band
                + tx[k].long() * ny_pad + ty[k].long())
         base = row * (N_PLANES * n_samp) + j
-        planes = [a, a * f[6, k], a * f[7, k], a * f[8, k], a * a,
+        wd = pair_depth_weights(wd_ab, meta[4, idx[k]], idx[k] // chunk,
+                                fields.dtype)
+        aw = _weighted_alpha(a[:, None], wd, alpha_pow)[:, 0]
+        planes = [aw, aw * f[6, k], aw * f[7, k], aw * f[8, k], aw * a,
                   torch.log1p(-a)]
         for q, v in enumerate(planes):
             flat.index_add_(0, base + q * n_samp, v)
@@ -695,7 +782,8 @@ def tail_accumulate_bwd_units(fields, meta, band, cut, params_row, d_acc,
                               k_bands: int, nx: int, ny: int, chunk: int,
                               budget: int, s_cy: int, s_cx: int,
                               budget_lo: int = 0, slot_mask=None,
-                              exact_clip: bool = False):
+                              exact_clip: bool = False, wd_ab=None,
+                              alpha_pow: int = 0):
     """tail_accumulate_bwd composed the way K9 composes it: unit by unit,
     each splat's ten sums taken slot after slot over its own listed pairs,
     then chained through the widening; zeros for a splat with no listed
@@ -721,21 +809,33 @@ def tail_accumulate_bwd_units(fields, meta, band, cut, params_row, d_acc,
             f = fields[:, idx[at]]
             pair = _pair_samples(f, tx[at], ty[at], params_row, jx, jy,
                                  exact_clip)
+            wd = pair_depth_weights(wd_ab, meta[4, idx[at]],
+                                    idx[at] // chunk, fields.dtype)
             sums[:, idx[at]] += _pair_cotangent_sums(f, pair,
                                                      d_planes[row[at]], bx2,
-                                                     by2)
+                                                     by2, wd, alpha_pow)
     out = _widening_bwd(fields, sums, bx2, by2)
     window = _live_window(meta[5], budget_lo, budget) & listed
     return torch.where(window[None, :], out, 0.0)
 
 
+def _wd_arg(wd_ab):
+    """The (S, 2) depth-weight coefficients for K7 / K9 as (tensor or None,
+    row stride in elements): a at [g * stride], b at [g * stride + 1]."""
+    if wd_ab is None:
+        return None, 2
+    if wd_ab.dtype != torch.float32 or wd_ab.stride(1) != 1:
+        wd_ab = wd_ab.to(torch.float32).contiguous()
+    return wd_ab, wd_ab.stride(0)
+
+
 def _accumulate_fwd(fields, meta, band, rect, cut, params_row, slot_mask,
-                    st):
+                    wd_ab, st):
     if _device(meta) == "cpu":
         return tail_accumulate_plain(
             fields, meta, band, cut, params_row, st["k_bands"], st["nx"],
             st["ny"], st["chunk"], st["budget"], st["s_cy"], st["s_cx"],
-            st["budget_lo"], st["exact_clip"])
+            st["budget_lo"], st["exact_clip"], wd_ab, st["alpha_pow"])
     n_samp = st["s_cy"] * st["s_cx"]
     npts = meta.shape[1]
     ny_pad = ny_padded(st["ny"])
@@ -743,6 +843,7 @@ def _accumulate_fwd(fields, meta, band, rect, cut, params_row, slot_mask,
                       dtype=torch.float32, device=meta.device)
     band, band_stride = _strided_arg(band)
     mask, mask_stride = _strided_arg(slot_mask)
+    wd, wd_stride = _wd_arg(wd_ab)
     _check_cut(cut)
     # K7 adds straight to the accumulator and stages no window: the
     # prepass's rect is not passed on.
@@ -755,15 +856,16 @@ def _accumulate_fwd(fields, meta, band, rect, cut, params_row, slot_mask,
                     acc, npts, npts // st["chunk"], st["chunk"],
                     st["budget"], st["budget_lo"], st["nx"], ny_pad,
                     st["s_cx"], n_samp, st["k_bands"], int(st["exact_clip"]),
-                    band_stride, mask_stride, cut.shape[0],
-                    stream=_stream(meta))
+                    band_stride, mask_stride, cut.shape[0], wd, wd_stride,
+                    st["alpha_pow"], stream=_stream(meta))
     return acc
 
 
 def tail_accumulate_bwd(fields, meta, band, cut, params_row, d_acc,
                         slot_mask=None, *, k_bands: int, nx: int, ny: int,
                         chunk: int, budget: int, s_cy: int, s_cx: int,
-                        budget_lo: int = 0, exact_clip: bool = False):
+                        budget_lo: int = 0, exact_clip: bool = False,
+                        wd_ab=None, alpha_pow: int = 0):
     """d_fields (10, Np) of tail_accumulate: a CPU tensor runs
     tail_accumulate_bwd_plain, a CUDA tensor launches K9 (any sample grid
     K7 takes)."""
@@ -771,7 +873,7 @@ def tail_accumulate_bwd(fields, meta, band, cut, params_row, d_acc,
         return tail_accumulate_bwd_plain(fields, meta, band, cut, params_row,
                                          d_acc, k_bands, nx, ny, chunk,
                                          budget, s_cy, s_cx, budget_lo,
-                                         exact_clip)
+                                         exact_clip, wd_ab, alpha_pow)
     n_samp = s_cy * s_cx
     npts = meta.shape[1]
     ny_pad = ny_padded(ny)
@@ -781,6 +883,7 @@ def tail_accumulate_bwd(fields, meta, band, cut, params_row, d_acc,
                            device=meta.device)
     band, band_stride = _strided_arg(band)
     mask, mask_stride = _strided_arg(slot_mask)
+    wd, wd_stride = _wd_arg(wd_ab)
     _check_cut(cut)
     TAIL_ACCUMULATE_BWD(fields.contiguous(),
                         meta.contiguous(),
@@ -792,31 +895,36 @@ def tail_accumulate_bwd(fields, meta, band, cut, params_row, d_acc,
                         d_fields, npts, npts // chunk, chunk,
                         budget, budget_lo, nx, ny_pad, s_cx, n_samp, k_bands,
                         int(exact_clip), band_stride, mask_stride,
-                        cut.shape[0], stream=_stream(meta))
+                        cut.shape[0], wd, wd_stride, alpha_pow,
+                        stream=_stream(meta))
     return d_fields
 
 
 class _TailAccumulate(torch.autograd.Function):
     """tail_accumulate with the reference's VJP (`_tail_core_fwd`,
     `_tail_core_bwd`): the fields get K9's (or its plain version's)
-    cotangent; meta, band, rect, cut and slot_mask are integers and
-    params_row a camera constant, so they get none."""
+    cotangent; meta, band, rect, cut and slot_mask are integers, params_row
+    a camera constant and wd_ab a function of integer depth bits, so they
+    get none."""
 
     @staticmethod
     def forward(ctx, fields, meta, band, rect, cut, params_row, slot_mask,
-                st):
+                wd_ab, st):
         ctx.st = st
-        ctx.save_for_backward(fields, meta, band, cut, params_row, slot_mask)
+        ctx.save_for_backward(fields, meta, band, cut, params_row, slot_mask,
+                              wd_ab)
         return _accumulate_fwd(fields, meta, band, rect, cut, params_row,
-                               slot_mask, st)
+                               slot_mask, wd_ab, st)
 
     @staticmethod
     def backward(ctx, d_acc):
         with record_function("fourdgs::tail_bwd"):
-            fields, meta, band, cut, params_row, slot_mask = ctx.saved_tensors
+            (fields, meta, band, cut, params_row, slot_mask,
+             wd_ab) = ctx.saved_tensors
             d_fields = tail_accumulate_bwd(fields, meta, band, cut, params_row,
-                                           d_acc, slot_mask, **ctx.st)
-            return d_fields, None, None, None, None, None, None, None
+                                           d_acc, slot_mask, wd_ab=wd_ab,
+                                           **ctx.st)
+            return (d_fields,) + (None,) * 8
 
 
 def tail_accumulate(fields, meta, band, rect, cut, params_row, k_bands: int,
@@ -835,13 +943,11 @@ def tail_accumulate(fields, meta, band, rect, cut, params_row, k_bands: int,
     lies in the bbox, and its key exceeds cut[tile].
     Returns acc (k_bands * nx * ny_pad, 6 * s_cy * s_cx) f32, row band *
     nx * ny_pad + tx * ny_pad + ty, column plane * n_samp + sample.
+    wd_ab (S, 2) f32, the chunks' depth-weight coefficients (a, b)
+    (band_weight_coeffs gathered by the chunks' bands), or None; alpha_pow
+    p >= 0: the A..A2 planes carry w_d alpha^(1+p) (module docstring).
     Differentiable in fields (K9 on the card). float64 fields are taken on
-    the CPU only. The within-band weighting knobs (wd_ab, alpha_pow) are
-    not ported."""
-    if wd_ab is not None or alpha_pow:
-        raise NotImplementedError(
-            "tail_depth_beta / tail_alpha_power are not ported (ROADMAP.md, "
-            "deliberately last)")
+    the CPU only."""
     npts = meta.shape[1]
     steps = npts // chunk
     if meta.shape[0] != 6 or meta.dtype != torch.int32 or steps * chunk != npts:
@@ -854,8 +960,14 @@ def tail_accumulate(fields, meta, band, rect, cut, params_row, k_bands: int,
                          f"only on the CPU)")
     if band.shape != (steps,) or rect.shape != (steps, 4):
         raise ValueError("band must be (S,) and rect (S, 4)")
-    for t in (fields, band, rect, cut, params_row) + (
-            () if slot_mask is None else (slot_mask,)):
+    if wd_ab is not None and (wd_ab.shape != (steps, 2)
+                              or not wd_ab.is_floating_point()):
+        raise ValueError(f"wd_ab must be ({steps}, 2) float, got "
+                         f"{tuple(wd_ab.shape)} {wd_ab.dtype}")
+    if alpha_pow < 0:
+        raise ValueError(f"alpha_pow must be >= 0, got {alpha_pow}")
+    for t in (fields, band, rect, cut, params_row) + tuple(
+            x for x in (slot_mask, wd_ab) if x is not None):
         if t.device != meta.device:
             raise ValueError("all tail inputs must share a device")
     _device(meta)
@@ -863,9 +975,11 @@ def tail_accumulate(fields, meta, band, rect, cut, params_row, k_bands: int,
         fields = F.pad(fields, (0, npts - fields.shape[1]))
     st = dict(k_bands=k_bands, nx=nx, ny=ny, chunk=chunk, budget=budget,
               s_cy=s_cy, s_cx=s_cx, budget_lo=budget_lo,
-              exact_clip=exact_clip)
+              exact_clip=exact_clip, alpha_pow=int(alpha_pow))
+    if wd_ab is not None:
+        wd_ab = wd_ab.detach()
     if not (torch.is_grad_enabled() and fields.requires_grad):
         return _accumulate_fwd(fields, meta, band, rect, cut, params_row,
-                               slot_mask, st)
+                               slot_mask, wd_ab, st)
     return _TailAccumulate.apply(fields, meta, band, rect, cut, params_row,
-                                 slot_mask, st)
+                                 slot_mask, wd_ab, st)

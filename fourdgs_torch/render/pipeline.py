@@ -19,8 +19,7 @@ Two composite backends: `backend="pallas"` names the hand-written kernels
 compositor (`_composite_tiles_xla`), which here is plain PyTorch on whatever
 device the splats are on. `RenderConfig` keeps every field name and default
 of the reference, so a reference config converts with
-`RenderConfig(**dataclasses.asdict(cfg))`. The tail's within-band weighting
-(`tail_depth_beta`) is not ported yet and raises NotImplementedError.
+`RenderConfig(**dataclasses.asdict(cfg))`.
 
 The entry points are `render_splats4d`, `render_splats3d`, `render_splats2d`
 (the dataclass splats of splats/gaussians.py) and `render_params4d_packed`
@@ -42,7 +41,8 @@ from torch.profiler import record_function
 
 from fourdgs_torch.core.camera import Camera
 from fourdgs_torch.ops import tail_cuda as TL
-from fourdgs_torch.ops.composite_cuda import (composite_records,
+from fourdgs_torch.ops.composite_cuda import (_F, N_FIELDS,
+                                              composite_records,
                                               composite_records_at,
                                               identity_carry, pack_records,
                                               record_fields)
@@ -438,9 +438,6 @@ def _apply_banded_tail(out, proj: Projected, binning, p00, p11,
                          f"{cfg.tile_h}x{cfg.tile_w} tile")
     params_row = TL.tail_params_row(cfg.tile_h, cfg.tile_w, cfg.tail_block,
                                     w, h, p00, p11, ty_base)
-    if cfg.tail_depth_beta:
-        raise NotImplementedError("tail_depth_beta is not ported (ROADMAP.md,"
-                                  " deliberately last)")
     wd = dict(alpha_pow=cfg.tail_alpha_power, exact_clip=cfg.tail_exact_clip)
     chunk = cfg.tail_chunk
     budget = cfg.max_tiles_per_splat
@@ -448,11 +445,20 @@ def _apply_banded_tail(out, proj: Projected, binning, p00, p11,
         meta = TL.tail_meta(alive, tx0, tx1, ty0, ty1, dbits, chunk)
         band, rect, slot_mask = TL.tail_prepass(meta, band_cuts, chunk,
                                                 budget, k_bands=k_bands)
+        coeffs = None
+        if cfg.tail_depth_beta:
+            # The within-band depth weight: per-band coefficients from the
+            # band cuts and the sample's live depth extremes, gathered by
+            # each chunk's band.
+            d_lo, d_hi = TL.global_band_extremes(db_live)
+            coeffs = TL.band_weight_coeffs(band_cuts, d_lo, d_hi, k_bands,
+                                           cfg.tail_depth_beta)
     with record_function("fourdgs::tail_main"):
         acc = TL.tail_accumulate(fields, meta, band, rect, cut, params_row,
                                  k_bands=k_bands, nx=nx, ny=ny, chunk=chunk,
                                  budget=budget, s_cy=s_cy, s_cx=s_cx,
-                                 slot_mask=slot_mask, **wd)
+                                 slot_mask=slot_mask,
+                                 wd_ab=_band_rows(coeffs, band), **wd)
 
     if binning.big_ids is not None:
         # The big tier: the kept wide-span splat ids re-walked with the big
@@ -472,13 +478,95 @@ def _apply_banded_tail(out, proj: Projected, binning, p00, p11,
                 bfields, meta_b, band_b, rect_b, cut, params_row,
                 k_bands=k_bands, nx=nx, ny=ny, chunk=chunk_b,
                 budget=cfg.big_splat_budget, s_cy=s_cy, s_cx=s_cx,
-                budget_lo=budget, slot_mask=mask_b, **wd)
+                budget_lo=budget, slot_mask=mask_b,
+                wd_ab=_band_rows(coeffs, band_b), **wd)
 
     with record_function("fourdgs::tail_combine"):
         upt = TL.fold_upsample_tail(acc, k_bands, nx, ny, cfg.tile_h,
                                     cfg.tile_w, s_cy, s_cx)
         return torch.cat([TL.blend_tail_under_head(out, upt), out[:, 5:8]],
                          dim=1)
+
+
+def _composite_pairrec_progressive(rec_pairs: torch.Tensor,
+                                   tile_start: torch.Tensor, px, py, p00, p11,
+                                   background, cfg: RenderConfig,
+                                   head_counts=None,
+                                   return_carry: bool = False):
+    """Progressive slab composite straight from a tile-major sorted
+    pair-record array rec_pairs (P, 10): a tile's records are contiguous,
+    so every slab is a row slice and nothing is gathered by splat. The
+    compositor of the all_to_all sharded path, whose exchange delivers
+    records in pair order.
+
+    Pass 1 composites every tile's first `max_splats_per_tile` records (K1);
+    each of the deepening_passes - 1 further passes selects up to
+    round(deepening_fraction * T) (at least 128) tiles still unsaturated
+    with records left and composites their next slab into their carry in
+    place (K1's `sel` form). head_counts (T,), the distributed tail mode's
+    re-cut, replaces the CSR counts: the head owns exactly those records.
+    Returns the (T, P, 4) tiles over `background`, or with return_carry the
+    (T, 8, P) carry before it. Differentiable in rec_pairs (K8)."""
+    m = cfg.max_splats_per_tile
+    t_tiles, p = px.shape
+    dev = px.device
+    starts = tile_start[:-1]
+    counts_full = tile_start[1:] - starts
+    if head_counts is not None:
+        counts_full = head_counts
+    rec_pad = torch.cat([rec_pairs, rec_pairs.new_zeros((m, N_FIELDS))])
+    kx = (px / p00).reshape(t_tiles, 1, p)
+    ky = (py / p11).reshape(t_tiles, 1, p)
+    arange_m = torch.arange(m, device=dev)
+
+    def slab_recs(base, live):
+        """(T_sel,) row starts -> (T_sel, 16, m) kernel records; `live`
+        masks the bleed of the contiguous array into the next tile. A start
+        past the array (an inactive filler tile's) is clamped, as the
+        reference's dynamic_slice clamps it; its rows are all masked."""
+        base = torch.clamp(base.long(), max=rec_pad.shape[0] - m)
+        rows = rec_pad[base[:, None] + arange_m]                 # (T, m, NF)
+        rows = rows * live[..., None].to(rows.dtype)
+        rec = rows.permute(0, 2, 1)
+        return F.pad(rec, (0, 0, 0, _F - N_FIELDS))
+
+    live0 = arange_m[None, :] < counts_full[:, None]
+    out = composite_records(slab_recs(starts, live0),
+                            torch.clamp(counts_full, max=m).to(torch.int32),
+                            kx, ky, identity_carry(t_tiles, p, device=dev))
+    slab_done = torch.ones((t_tiles,), dtype=torch.int32, device=dev)
+    t_cap = min(t_tiles, max(128, int(round(t_tiles * cfg.deepening_fraction))))
+    if cfg.deepening_passes > 1 and out.requires_grad:
+        # composite_records saved `out` for its backward; the deepening
+        # passes update the carry in place, so they get their own copy.
+        out = out.clone()
+    for _ in range(1, cfg.deepening_passes):
+        done = slab_done * m
+        remaining = counts_full - done
+        unsat = out.detach()[:, 4, :].amax(dim=1) > 1e-6
+        active = unsat & (remaining > 0)
+        order = torch.argsort(-active.to(torch.int32), stable=True)
+        sel = order[:t_cap]
+        act = active[sel]
+        base = starts[sel] + done[sel]
+        off = done[sel][:, None] + arange_m[None, :]
+        live = act[:, None] & (off < counts_full[sel][:, None])
+        cnt = torch.where(act, torch.clamp(counts_full[sel] - done[sel], 0, m),
+                          0).to(torch.int32)
+        out = composite_records_at(slab_recs(base, live), cnt, sel, kx, ky,
+                                   out)
+        slab_done = slab_done.index_add(0, sel, act.to(slab_done.dtype))
+    if return_carry:
+        return out
+    rgb = out[:, 0:3, :] + out[:, 4:5, :] * background[:3, None]
+    a = out[:, 3, :] + out[:, 4, :] * background[3]
+    return torch.cat([rgb, a[:, None, :]], dim=1).permute(0, 2, 1)
+
+
+def _band_rows(coeffs, band):
+    """The chunks' rows (S, 2) of the per-band weight coefficients, or None
+    without the depth weight."""
+    return None if coeffs is None else coeffs[band.long()]
 
 
 def project_params4d(params: Dict[str, torch.Tensor], camera: Camera,

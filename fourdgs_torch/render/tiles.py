@@ -16,8 +16,8 @@ splat emits a fixed budget of (tile, splat) pair slots. Two orderings:
   into the rowsort kernel runs as its own pass (K10).
 
 Either way the per-tile ranges (CSR offsets) come from a left bisect of the
-sorted pairs. The sharded tile window (`tile_range`) waits for the port of
-parallel/ (ROADMAP.md Queue A).
+sorted pairs. A sharded render bins only its rank's window of tiles
+(`tile_range`, parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -190,13 +190,16 @@ def splat_tile_bbox(proj: Projected, p00, p11, width: int, height: int,
 
 
 def _emit_pair_slots(alive, tx0, tx1, ty0, ty1, nx: int, num_tiles: int,
-                     max_tiles_per_splat: int, splat_ids=None):
+                     max_tiles_per_splat: int, splat_ids=None,
+                     tile_range: Optional[Tuple[int, int]] = None):
     """Fixed-budget (tile, splat) pair emission, slot-major.
 
     Returns (tids, lives, splat_idx, overflowed): per-slot lists of (N,)
     tile ids (num_tiles for dead) and live masks, the concatenated (S*N,)
     splat index array, and the count of splats whose bbox exceeded the
-    budget. `splat_ids` overrides the emitted splat indices."""
+    budget. `splat_ids` overrides the emitted splat indices. With
+    tile_range = (lo, n_local) a slot is live only on a tile of the window
+    lo <= tid < lo + n_local."""
     n = alive.shape[0]
     nx_span = tx1 - tx0 + 1
     ny_span = ty1 - ty0 + 1
@@ -211,6 +214,9 @@ def _emit_pair_slots(alive, tx0, tx1, ty0, ty1, nx: int, num_tiles: int,
     for s in range(max_tiles_per_splat):
         live_s = alive & (s < span) & (sy < ny_span)
         tid_s = (ty0 + sy) * nx + (tx0 + sx)
+        if tile_range is not None:
+            lo, n_local = tile_range
+            live_s = live_s & (tid_s >= lo) & (tid_s < lo + n_local)
         tids.append(torch.where(live_s, tid_s, num_tiles))
         lives.append(live_s)
         if s + 1 < max_tiles_per_splat:
@@ -240,7 +246,8 @@ def quantized_pair_keys(proj: Projected, p00, p11, width: int, height: int,
                         tile_h: int, tile_w: int, max_tiles_per_splat: int,
                         big_splat_budget: int = 0,
                         big_splat_keep_cols: int = 128,
-                        tile_row_band: Optional[Tuple[int, int]] = None):
+                        tile_row_band: Optional[Tuple[int, int]] = None,
+                        tile_range: Optional[Tuple[int, int]] = None):
     """Emit the quantized pair-slot keys, before pruning and sorting.
 
     Returns (key, splat_idx, overflowed, big_ids): (S,) int32 keys (DEAD for
@@ -251,7 +258,8 @@ def quantized_pair_keys(proj: Projected, p00, p11, width: int, height: int,
     big_splat_budget slots; spans beyond even that, and big splats past the
     capacity, count into `overflowed`. With tile_row_band = (ty_base, ny),
     only tile rows [ty_base, ty_base + ny) are binned, with tile ids
-    relative to the band."""
+    relative to the band; with tile_range = (lo, n_local) only pairs on the
+    tiles of that window are live (_emit_pair_slots)."""
     ny, nx = tile_grid(width, height, tile_h, tile_w)
     alive, tx0, tx1, ty0, ty1 = splat_tile_bbox(proj, p00, p11, width,
                                                 height, tile_h, tile_w)
@@ -275,7 +283,8 @@ def quantized_pair_keys(proj: Projected, p00, p11, width: int, height: int,
     else:
         alive1 = alive
     tids, lives, splat_idx, overflowed = _emit_pair_slots(
-        alive1, tx0, tx1, ty0, ty1, nx, num_tiles, max_tiles_per_splat)
+        alive1, tx0, tx1, ty0, ty1, nx, num_tiles, max_tiles_per_splat,
+        tile_range=tile_range)
     dbits = quantized_depth_bits(proj.depth)
     key = _pair_keys(tids, lives, dbits)
     if not two_tier:
@@ -298,7 +307,7 @@ def quantized_pair_keys(proj: Projected, p00, p11, width: int, height: int,
     btx0, btx1, bty0, bty1, dbits_b, span_b = bfields
     tidsb, livesb, sidxb, _ = _emit_pair_slots(
         blive, btx0, btx1, bty0, bty1, nx, num_tiles, big_splat_budget,
-        splat_ids=safe)
+        splat_ids=safe, tile_range=tile_range)
     key = torch.cat([key, _pair_keys(tidsb, livesb, dbits_b)])
     splat_idx = torch.cat([splat_idx, sidxb])
     # Span overflow counted only among KEPT big splats: one dropped by the
@@ -310,8 +319,10 @@ def quantized_pair_keys(proj: Projected, p00, p11, width: int, height: int,
 
 def exact_pairs(proj: Projected, p00, p11, width: int, height: int,
                 tile_h: int, tile_w: int, max_tiles_per_splat: int,
-                tile_row_band: Optional[Tuple[int, int]] = None):
-    """The exact branch's sorted pairs: (pair_tile, pair_splat, overflowed).
+                tile_row_band: Optional[Tuple[int, int]] = None,
+                tile_range: Optional[Tuple[int, int]] = None):
+    """The exact branch's sorted pairs: (pair_tile, pair_splat, overflowed);
+    with tile_range only the window's pairs are live.
 
     The reference sorts the pairs on two keys, (tile id, splat index); here
     they are one int64 key, tile id << 32 | splat index, under one
@@ -326,7 +337,8 @@ def exact_pairs(proj: Projected, p00, p11, width: int, height: int,
                                                     tile_row_band)
     with record_function("fourdgs::emit"):
         tids, _, splat_idx, overflowed = _emit_pair_slots(
-            alive, tx0, tx1, ty0, ty1, nx, ny * nx, max_tiles_per_splat)
+            alive, tx0, tx1, ty0, ty1, nx, ny * nx, max_tiles_per_splat,
+            tile_range=tile_range)
         key = (torch.cat(tids).to(torch.int64) << 32) | splat_idx.to(
             torch.int64)
     with record_function("fourdgs::global_sort"):
@@ -348,7 +360,8 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
                depth_prune_cap: int = 0,
                depth_prune_safety: float = 2.0,
                head_cap: int = 0,
-               tile_row_band: Optional[Tuple[int, int]] = None
+               tile_row_band: Optional[Tuple[int, int]] = None,
+               tile_range: Optional[Tuple[int, int]] = None
                ) -> TileBinning:
     """Build sorted (tile, splat) pairs.
 
@@ -369,6 +382,11 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
     tile_row_band = (ty_base, ny) bins only that band of tile rows, with
     band-relative tile ids and tile_start of ny * nx + 1 entries; a single
     binning holds fewer than 2047 tiles.
+    tile_range = (lo, n_local), lo a Python int: bin only the window of
+    tiles [lo, lo + n_local) (a sharded rank's), pairs elsewhere dead;
+    tile_start has n_local + 1 entries, tile lo at index 0, and bounds past
+    the image's last tile are clipped to it. Under a window there is no
+    depth prune (and so no head re-cut), as in the reference.
     Ties within a (tile, 20-bit depth) bucket order arbitrarily, as in the
     reference.
     """
@@ -379,19 +397,21 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
     if not quantized_depth:
         tid_s, splat_s, overflowed = exact_pairs(
             proj, p00, p11, width, height, tile_h, tile_w,
-            max_tiles_per_splat, tile_row_band)
-        tile_ids = torch.arange(num_tiles + 1, dtype=torch.int32,
-                                device=tid_s.device)
+            max_tiles_per_splat, tile_row_band, tile_range)
         return TileBinning(pair_splat=splat_s, pair_tile=tid_s,
-                           tile_start=searchsorted_i32(tid_s, tile_ids),
+                           tile_start=searchsorted_i32(
+                               tid_s, _csr_tiles(num_tiles, tile_range,
+                                                 tid_s.device)),
                            overflowed=overflowed)
+    if tile_range is not None:
+        depth_prune_cap = 0
     fuse_cut = bool(depth_prune_cap and compact_keep_cols and pallas_compact
                     and not pallas_sort)
     with record_function("fourdgs::emit"):
         key, splat_idx, overflowed, big_ids = quantized_pair_keys(
             proj, p00, p11, width, height, tile_h, tile_w,
             max_tiles_per_splat, big_splat_budget, big_splat_keep_cols,
-            tile_row_band)
+            tile_row_band, tile_range)
     dev = key.device
 
     prune_cut = None
@@ -435,7 +455,8 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
             key_s, splat_s = _sort_kv(key, splat_idx)
     tid_s = torch.where(key_s == DEAD, num_tiles, key_s >> QUANT_DEPTH_BITS)
     tile_ids = torch.arange(num_tiles + 1, dtype=torch.int32, device=dev)
-    tile_start = searchsorted_i32(key_s, tile_ids << QUANT_DEPTH_BITS)
+    tile_start = searchsorted_i32(
+        key_s, _csr_tiles(num_tiles, tile_range, dev) << QUANT_DEPTH_BITS)
     prune_underkeep = tile_pruned = head_counts = None
     if prune_cut is not None:
         # The prune's statistical guarantee, verified: every tile that was
@@ -465,6 +486,17 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
                        prune_underkeep=prune_underkeep,
                        tile_pruned=tile_pruned, prune_cut=prune_cut,
                        head_counts=head_counts, big_ids=big_ids)
+
+
+def _csr_tiles(num_tiles: int, tile_range, device) -> torch.Tensor:
+    """The tile ids whose first pairs bound the CSR: 0 ... num_tiles, or
+    lo ... lo + n_local under a window, clipped to num_tiles (dead keys
+    sort last, so a bound past the image lands at the dead block)."""
+    if tile_range is None:
+        return torch.arange(num_tiles + 1, dtype=torch.int32, device=device)
+    lo, n_local = tile_range
+    return torch.clamp(lo + torch.arange(n_local + 1, dtype=torch.int32,
+                                         device=device), max=num_tiles)
 
 
 def depth_prune_cutkeys(key: torch.Tensor, num_tiles: int, cap: int,

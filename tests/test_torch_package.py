@@ -40,6 +40,8 @@ def test_package_never_imports_jax():
         "assert len(mods) >= 35, mods\n"
         "for m in ('ops.sort_checks', 'io.png', 'io.native', 'io.vdata',\n"
         "          'scenes.models', 'scenes.scenes', 'parallel.distributed',\n"
+        "          'parallel.mesh', 'parallel.multihost', 'entry',\n"
+        "          'tools.earlier_forms',\n"
         "          'train.densify', 'train.trainer', 'render.overlay',\n"
         "          'viewer.cli', 'utils.simplex', 'utils.misc',\n"
         "          'utils.profiling', 'examples.fit_motion',\n"
@@ -157,6 +159,9 @@ def test_default_device_is_the_card():
     from fourdgs_torch.parallel.distributed import splats_to_params
     from fourdgs_torch.train.densify import init_state
     from fourdgs_torch.train.trainer import load_checkpoint
+    from fourdgs_torch.entry import dryrun_multichip
+    from fourdgs_torch.parallel.mesh import make_mesh
+    from fourdgs_torch.parallel.multihost import host_mesh
     assert fourdgs_torch.default_device().type == "cuda"
     assert fourdgs_torch.resolve_device(None) == fourdgs_torch.default_device()
     assert fourdgs_torch.resolve_device("cpu") == torch.device("cpu")
@@ -168,6 +173,12 @@ def test_default_device_is_the_card():
                splats4d_from_numpy, splats_to_params, init_state,
                load_checkpoint):
         assert inspect.signature(fn).parameters["device"].default is None, fn
+    # The sharded layer's meshes and dry run default to the card too.
+    for fn in (make_mesh, host_mesh):
+        assert inspect.signature(fn).parameters[
+            "device_type"].default == "cuda", fn
+    assert inspect.signature(dryrun_multichip).parameters[
+        "device"].default == "cuda"
 
 
 def test_identity_carry_goes_to_the_default_device(monkeypatch):
@@ -284,6 +295,52 @@ def test_launcher_passes_live_tensors():
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         k(x, x, None, 5, stream=7)
     assert k.launches == 1
+
+
+class _OnDevice(torch.Tensor):
+    """A CPU tensor that reports another device: the launcher's guard is
+    held without a card."""
+    where = torch.device("cuda", 1)
+
+    @property
+    def device(self):
+        return self.where
+
+
+def test_launcher_takes_the_tensors_device(monkeypatch):
+    """A kernel launches on its tensors' device, whatever the current one
+    is (the entries that size their grid from cudaGetDevice then read that
+    card); tensors on two devices raise before anything is launched."""
+    from fourdgs_torch.ops import _build
+    entered, seen = [], []
+
+    class Ctx:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            entered.append(self.dev)
+
+        def __exit__(self, *a):
+            entered.append("exit")
+    monkeypatch.setattr(_build.torch.cuda, "device", Ctx)
+    k = CudaKernel("none.cu", "entry", [ctypes.c_void_p] * 2)
+    k._fn = lambda *args: seen.append(args) or 0
+    x = torch.ones(8)
+    a, b = x.as_subclass(_OnDevice), x.clone().as_subclass(_OnDevice)
+    k(a, b, stream=3)
+    assert entered == [torch.device("cuda", 1), "exit"] and len(seen) == 1
+    assert _build.launch_device([a, None, 4]) == torch.device("cuda", 1)
+    assert _build.launch_device([None, 4]) is None
+    # CPU tensors (the tests' fakes) enter no device context.
+    k(x, x, stream=3)
+    assert len(entered) == 2 and len(seen) == 2 and k.launches == 2
+    with pytest.raises(ValueError, match="span devices"):
+        k(a, x, stream=3)
+    meta = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="span devices"):
+        k(x, meta, stream=3)
+    assert len(seen) == 2 and k.launches == 2      # nothing was launched
 
 
 def test_grads4d_to_numpy():

@@ -134,6 +134,72 @@ def test_rowsort_lists_match_reference(use_cut):
                 pairs(wk, wv, r)[:live_r.sum()])
 
 
+@pytest.mark.parametrize("use_cut", [True, False])
+@pytest.mark.parametrize("cap,keep,row_len,short", [
+    (32, 24, 256, 0), (64, 48, 256, 300), (128, 100, 256, 0)])
+def test_rowsort_alternating_lists_equal_plain(cap, keep, row_len, short,
+                                               use_cut):
+    """K2's alternating form: odd rows descending, their tail kept, i.e.
+    the ascending keep reversed; even rows exactly as without it."""
+    key, val, cut, _ = _branch_rows(cap + keep + 1, row_len, keep, cap,
+                                    short)
+    k, v = torch.from_numpy(key), torch.from_numpy(val)
+    c = torch.from_numpy(cut) if use_cut else None
+    want = TS.rowsort_compact_plain(k, v, keep, row_len, c, SHIFT,
+                                    alternating=True)
+    got = TS.rowsort_compact_lists(k, v, keep, row_len, c, SHIFT, cap,
+                                   alternating=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    asc = TS.rowsort_compact_plain(k, v, keep, row_len, c, SHIFT)
+    for a, g in zip(asc[:2], got[:2]):
+        assert torch.equal(g[:, 0::2], a[:, 0::2])
+        assert torch.equal(g[:, 1::2], a[:, 1::2].flip(0))
+    assert torch.equal(got[2], asc[2])
+    ok = got[0].numpy().astype(np.int64)
+    assert (np.diff(ok[:, 1::2], axis=0) <= 0).all()      # descending
+    assert (np.diff(ok[:, 0::2], axis=0) >= 0).all()
+    ok_w, _, dropped = TS.rowsort_compact(k, v, keep, row_len, c, SHIFT,
+                                          alternating=True)
+    assert torch.equal(ok_w, got[0])
+    assert int(dropped) == int(torch.clamp(got[2] - keep, min=0).sum())
+
+
+@pytest.mark.parametrize("use_cut", [True, False])
+def test_rowsort_alternating_matches_reference(use_cut):
+    """The reference's rowsort_compact(alternating=True) in interpret mode:
+    keys exactly, values as per-row (key, value) multisets where the keep
+    cap cut no run of equal keys (its bitonic network orders ties
+    arbitrarily), `dropped` equal."""
+    from fourdgs.ops.sort_pallas import rowsort_compact
+    keep, row_len, cap = 24, 256, 32
+    key, val, cut, _ = _branch_rows(5, row_len, keep, cap, 123)
+    wk, wv, wd = rowsort_compact(jnp.asarray(key), jnp.asarray(val), keep,
+                                 row_len=row_len, alternating=True,
+                                 cut=jnp.asarray(cut) if use_cut else None,
+                                 key_shift=SHIFT, interpret=True)
+    k, v = torch.from_numpy(key), torch.from_numpy(val)
+    c = torch.from_numpy(cut) if use_cut else None
+    pk, pv, _ = TS.rowsort_compact_plain(k, v, keep, row_len, c, SHIFT,
+                                         alternating=True)
+    gk, gv, live = TS.rowsort_compact_lists(k, v, keep, row_len, c, SHIFT,
+                                            cap, alternating=True)
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(pk.numpy(), np.asarray(wk))
+    assert int(torch.clamp(live - keep, min=0).sum()) == int(wd) > 0
+    def pairs(a, b, r):
+        """The row's live (key, value) pairs, sorted (a DEAD key's value is
+        0 in the port and arbitrary in the reference)."""
+        ka, vb = np.asarray(a)[:, r], np.asarray(b)[:, r]
+        at = ka != DEAD
+        return np.sort((ka[at].astype(np.int64) << 32)
+                       | (vb[at].astype(np.int64) & 0xFFFFFFFF))
+    for r in range(64, ROWS):
+        if int(live[r]) <= keep:
+            np.testing.assert_array_equal(pairs(gk, gv, r), pairs(wk, wv, r))
+            np.testing.assert_array_equal(pairs(pk, pv, r), pairs(wk, wv, r))
+
+
 # ---------------------------------------------------------------------------
 # K12: several stages a pass
 # ---------------------------------------------------------------------------

@@ -326,8 +326,21 @@ def test_tail_accumulate_pads_short_fields():
 
 @pytest.mark.parametrize("knob", ["wd_ab", "alpha_pow"])
 def test_tail_weighting_knobs_are_not_ported(knob):
+    """The knobs were refused before the within-band weighting was ported;
+    now they run. Zero coefficients weigh every pair exp(0) = 1, which
+    leaves the accumulator bit-equal to the unweighted one; alpha_pow 1
+    changes the A..A2 planes and leaves the L plane as it was
+    (tests/test_torch_tail_weighting.py holds both against the
+    reference)."""
     fx = _fixture(n=600, chunk=256)
     extra = ({"wd_ab": torch.zeros((fx["band"].shape[0], 2))}
              if knob == "wd_ab" else {"alpha_pow": 1})
-    with pytest.raises(NotImplementedError):
-        _port_acc(fx, 2, 8, **extra)
+    plain = _port_acc(fx, 2, 8)
+    got = _port_acc(fx, 2, 8, **extra)
+    n_samp = 2 * 8
+    if knob == "wd_ab":
+        np.testing.assert_array_equal(got, plain)
+    else:
+        assert not np.array_equal(got[:, :5 * n_samp], plain[:, :5 * n_samp])
+        np.testing.assert_array_equal(got[:, 5 * n_samp:],
+                                      plain[:, 5 * n_samp:])

@@ -263,7 +263,8 @@ def test_tail_backward_wrapper_takes_every_sample_grid(monkeypatch, s_cy,
     assert list(args[8:]) == [npts, npts // kw["chunk"], kw["chunk"],
                               kw["budget"], kw["budget_lo"], kw["nx"],
                               TL.ny_padded(kw["ny"]), s_cx, n_samp,
-                              kw["k_bands"], 1, 1, 1, t["cut"].shape[0]]
+                              kw["k_bands"], 1, 1, 1, t["cut"].shape[0],
+                              None, 2, 0]
     with pytest.raises(ValueError):
         TL.tail_accumulate_bwd(t["fields"], t["meta"], t["band"], t["cut"],
                                t["params_row"], d_acc[:, :-1], t["mask"],
@@ -289,14 +290,15 @@ def test_tail_forward_wrapper_reads_prepass_columns_in_place(monkeypatch):
     fields, meta, band, mask, cut, prm, acc_arg = args[:7]
     assert band.data_ptr() == out[:, 0].data_ptr()
     assert mask.data_ptr() == out[:, 5].data_ptr()
-    assert list(args[-3:]) == [6, 6, t["cut"].shape[0]]
-    assert len(args) == 7 + 14
+    assert list(args[-6:-3]) == [6, 6, t["cut"].shape[0]]
+    assert list(args[-3:]) == [None, 2, 0]       # no depth weights, p = 0
+    assert len(args) == 7 + 14 + 3
     assert cut.data_ptr() == t["cut"].data_ptr() and acc_arg is acc
     assert not bool(acc.any())                    # the fake adds nothing
     TL.tail_accumulate(t["fields"], t["meta"], t["band"].long(), t["rect"],
                        t["cut"], t["params_row"], s_cy=1, s_cx=8, **kw)
     assert fake.calls[1][2].dtype == torch.int32
-    assert fake.calls[1][3] is None and list(fake.calls[1][-3:-1]) == [1, 1]
+    assert fake.calls[1][3] is None and list(fake.calls[1][-6:-4]) == [1, 1]
     with pytest.raises(ValueError):
         TL.tail_accumulate(t["fields"], t["meta"], t["band"], t["rect"],
                            torch.zeros(TL.CUT_ENTRIES + 1, dtype=torch.int32),
