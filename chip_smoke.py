@@ -181,27 +181,26 @@ on the same card at each of those call sites. Phases:
       as a PNG under chiprun_out/viewer/;
   the within-band weighting, K2's alternating rows, the sharded layer:
   (v1) after (l), the 10M converged frame at tail_depth_beta = 8: K7 (both
-      streams) and K9 (its grad step) against plain; at the same inputs
-      unweighted, K9 bit-equal and K7 within K7's tolerance of their earlier
-      forms (`fourdgs_torch/tools/csrc/tail_unweighted.cu`,
-      `tail_bwd_unweighted.cu`), whose registers the unweighted instances
-      keep; 20K frames at tail_alpha_power 1 and tail_depth_beta 8 card
+      streams, every entry within K7's tolerance) and K9 (its grad step)
+      against plain; K7's L plane equal to the unweighted K7's at the same
+      inputs; 20K frames at tail_alpha_power 1 and tail_depth_beta 8 card
       against CPU as in (h); the frame and the grad step timed beside (i);
-  (v2) K2's alternating form at that frame's keys exactly against plain,
-      its ascending form bit-equal to the earlier form
-      (`tools/csrc/rowsort_ascending.cu`);
+  (v2) K2's alternating form at that frame's keys exactly against plain;
   (v3) at the end, in a process group of one rank (gloo and NCCL, TCP on
       127.0.0.1, ended after): the 1M-splat cube at 1920x1088 through
       render_splats4d_sharded (the viewer's pallas config) and
       render_splats4d_sharded_alltoall, non-converged and converged at
       tail_depth_beta = 8, each against render_splats4d at the same config
-      (3e-5; the converged mode at the reference's bounds), nothing dropped
-      under required_send_budget, K1 and K7 against plain at their inputs;
+      (3e-5; the converged mode at the reference's bounds, its p99 at
+      CONVERGED_P99, and at all of them with the single chip's band cuts),
+      nothing dropped under required_send_budget, K1 and K7 against plain
+      at their inputs;
   (v4) the three sharded train steps (K8, K9 against plain at a step's
       inputs; step times, peak memory), a 5-step fit_sharded (converged,
       beta 8) and fourdgs_torch.entry.dryrun_multichip(1);
   (v5) 20K frames, losses and gradients of the three sharded modes, card
-      against CPU under the tie tolerances. One card runs world size 1
+      against CPU under the tie tolerances (the gradients' mean without
+      the splat of ROADMAP C-R15). One card runs world size 1
       only: the multi-rank semantics are held by the CPU tests
       (tests/test_torch_parallel*.py, four gloo processes).
 
@@ -3590,37 +3589,21 @@ def shard_cfgs(n, w, h):
     }
 
 
-def _registers(kernel, earlier):
-    """{instance: (registers, the earlier form's)} of the unweighted
-    instances of a tail kernel (cuobjdump; {} without it)."""
-    from fourdgs_torch.tools import earlier_forms as EF
-    new, old = EF.resource_usage(kernel), EF.resource_usage(earlier)
-
-    def key(name):
-        inst = name.split("<", 1)[1].split(">", 1)[0] if "<" in name else ""
-        return inst.replace(", false", "").replace(" ", "")
-    old = {key(k): v for k, v in old.items()}
-    return {key(k): (v, old.get(key(k))) for k, v in new.items()
-            if ", false>" in k}
+def k7_outside(got, want):
+    """Entries of a K7 accumulator outside K7's tolerance of `want`, each
+    held to its own magnitude (the weighted planes span e^0..e^25)."""
+    return (got - want).abs() > K7_ATOL + K7_RTOL * want.abs()
 
 
-def phase_weighted_tail(tag, calls_fwd, calls_bwd, earlier):
+def phase_weighted_tail(tag, calls_fwd, calls_bwd):
     """K7 at the weighted frame's two streams and K9 at its grad step's,
-    against their plain versions (K7's and K9's tolerances); at the same
-    inputs unweighted, K9 bit-equal to its earlier form and K7 within K7's
-    tolerance of its earlier form (its atomics add in no fixed order), and
-    both kernels' unweighted instances with the earlier forms' registers."""
+    against their plain versions (K7's and K9's tolerances, every entry
+    against its own magnitude); K7's L plane (unweighted by design) within
+    K7's tolerance of the unweighted K7's at the same inputs, and its
+    A..A2 planes changed by the weights."""
     import torch
     import torch.nn.functional as F
     from fourdgs_torch.ops import tail_cuda as TL
-    from fourdgs_torch.tools import earlier_forms as EF
-    e7, e9 = earlier
-    regs7 = _registers(TL.TAIL_ACCUMULATE, e7)
-    regs9 = _registers(TL.TAIL_ACCUMULATE_BWD, e9)
-    for what, regs in (("K7", regs7), ("K9", regs9)):
-        check(all(a == b for a, b in regs.values()),
-              f"{tag} {what}: unweighted instances' registers {regs} differ "
-              f"from the earlier form's")
     results, lines, sites = {}, [], []
     check(len(calls_fwd) == 2, f"{tag} K7: {len(calls_fwd)} calls, want 2")
     for label, (args, kw) in zip(("main", "big"), calls_fwd):
@@ -3641,19 +3624,20 @@ def phase_weighted_tail(tag, calls_fwd, calls_bwd, earlier):
                                             **weighting_kw(kw))
         got, want = k7(), k7_plain()
         unw = TL.tail_accumulate(*args, **dict(kw, wd_ab=None, alpha_pow=0))
-        old = EF.tail_accumulate(e7, fields, meta, band, cut, params_row,
-                                 kw.get("slot_mask"), **st)
         torch.cuda.synchronize()
+        n_samp = st["s_cy"] * st["s_cx"]
+        planes = got.reshape(got.shape[0], TL.N_PLANES, n_samp)
+        planes_u = unw.reshape(unw.shape[0], TL.N_PLANES, n_samp)
         for what, g, w in (("weighted vs plain", got, want),
-                           ("unweighted vs earlier form", unw, old)):
-            d = (g - w).abs()
-            bad = d > K7_ATOL * max(1.0, float(w.abs().max())) \
-                + K7_RTOL * w.abs()
+                           ("L plane vs unweighted K7", planes[:, 5],
+                            planes_u[:, 5])):
+            bad = k7_outside(g, w)
             check(not bool(bad.any()), f"{tag} K7 {label} {what}: "
                   f"{int(bad.sum())} entries outside {K7_RTOL:g} rel + "
-                  f"{K7_ATOL:g} of max |acc|, max |d| {float(d.max()):.3e}")
-        check(label == "big" or float((got - unw).abs().max()) > 0,
-              f"{tag} K7 {label}: the weights changed nothing")
+                  f"{K7_ATOL:g}, max |d| {float((g - w).abs().max()):.3e}")
+        check(label == "big" or float((planes[:, :5] - planes_u[:, :5])
+                                      .abs().max()) > 0,
+              f"{tag} K7 {label}: the weights changed no A..A2 plane")
         err = float((got - want).abs().max())
         ms = cuda_ms(k7, tail_reps(npts))
         unw_ms = cuda_ms(lambda: TL.tail_accumulate(
@@ -3670,11 +3654,9 @@ def phase_weighted_tail(tag, calls_fwd, calls_bwd, earlier):
                      f"{float(want.abs().max()):.3e}); kernel {ms:.3f} ms, "
                      f"unweighted {unw_ms:.3f} ms, plain {plain_ms:.3f} ms")
     results["K7 tail_accumulate"] = _sites(sites)
-    print(f"{tag} K7 tail_accumulate at tail_depth_beta {BETA:g} (K7's "
-          f"tolerance, relative to |acc| max as the weights reach e^8); "
-          f"unweighted at the same inputs within it of the earlier form; "
-          f"unweighted instances' registers {json.dumps(regs7)}: "
-          + "; ".join(lines))
+    print(f"{tag} K7 tail_accumulate at tail_depth_beta {BETA:g} (every "
+          f"entry within {K7_RTOL:g} rel + {K7_ATOL:g} of plain; the L plane "
+          f"within it of the unweighted K7's): " + "; ".join(lines))
     sites, lines = [], []
     for (args, kw) in calls_bwd:
         fields, meta, band, cut, params_row, d_acc, mask = args
@@ -3690,11 +3672,6 @@ def phase_weighted_tail(tag, calls_fwd, calls_bwd, earlier):
                 fields, meta, band, cut, params_row, d_acc, **st,
                 **weighting_kw(kw))
         got, again, want = k9(), k9(), k9_plain()
-        unw = TL.tail_accumulate_bwd(*args, **dict(kw, wd_ab=None,
-                                                   alpha_pow=0))
-        old = EF.tail_accumulate_bwd(e9, fields, meta, band, cut, params_row,
-                                     d_acc, mask, **{k: v for k, v in
-                                                     st.items()})
         torch.cuda.synchronize()
         check(label == "big" or float(want.abs().max()) > 0,
               f"{tag} K9 {label}: no cotangent")
@@ -3706,8 +3683,6 @@ def phase_weighted_tail(tag, calls_fwd, calls_bwd, earlier):
               f"max |d| > {BWD_TOL:g}")
         check(torch.equal(got, again), f"{tag} K9 {label}: a second launch "
               f"differs from the first")
-        check(torch.equal(unw, old), f"{tag} K9 {label}: unweighted differs "
-              f"from the earlier form")
         ms = cuda_ms(k9, tail_reps(meta.shape[1]))
         plain_ms = cuda_ms(k9_plain, 2, warmup=1)
         where = f"{label}: {meta.shape[1]:,} splats, chunk {st['chunk']}"
@@ -3724,21 +3699,18 @@ def phase_weighted_tail(tag, calls_fwd, calls_bwd, earlier):
     results["K9 tail_accumulate_bwd"] = _sites(sites)
     print(f"{tag} K9 tail_accumulate_bwd at tail_depth_beta {BETA:g} "
           f"(tolerance {BWD_TOL:g} of each field's max |d|; two launches "
-          f"bit-equal; unweighted at the same inputs bit-equal to the "
-          f"earlier form; unweighted instances' registers "
-          f"{json.dumps(regs9)}): " + "; ".join(lines))
+          f"bit-equal): " + "; ".join(lines))
     return results
 
 
-def phase_rowsort_alternating(tag, calls, earlier, kernels):
+def phase_rowsort_alternating(tag, calls, kernels):
     """K2 at the weighted frame's keys: the alternating form exactly against
-    plain (keys, values, live, dropped; a second launch bit-equal), the
-    ascending form bit-equal to the earlier form; the alternating form
+    plain (keys, values, live, dropped; a second launch bit-equal); the
+    alternating form
     driven once through the public rowsort_compact with every count set to
     0 just before and read just after. Returns (results, launches)."""
     import torch
     from fourdgs_torch.ops import sort_cuda as S
-    from fourdgs_torch.tools import earlier_forms as EF
     (key, val, keep), kw = calls[0]
     row_len, cut, shift = kw["row_len"], kw["cut"], kw["key_shift"]
     got = S._rowsort_compact_live(key, val, keep, row_len, cut, shift,
@@ -3747,8 +3719,6 @@ def phase_rowsort_alternating(tag, calls, earlier, kernels):
                                     alternating=True)
     pk, pv, plive = S.rowsort_compact_plain(key, val, keep, row_len, cut,
                                             shift, alternating=True)
-    asc = S._rowsort_compact_live(key, val, keep, row_len, cut, shift)
-    old = EF.rowsort_compact(earlier, key, val, keep, row_len, cut, shift)
     torch.cuda.synchronize()
     check(torch.equal(got[0], pk) and torch.equal(got[1], pv)
           and torch.equal(got[2], plive)
@@ -3756,8 +3726,6 @@ def phase_rowsort_alternating(tag, calls, earlier, kernels):
           f"{tag} K2 alternating differs from plain")
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{tag} K2 alternating: a second launch differs")
-    check(all(torch.equal(a, b) for a, b in zip(asc, old)),
-          f"{tag} K2 ascending differs from the earlier form")
     odd = got[0][:, 1::2].long()
     check(bool((odd[1:] <= odd[:-1]).all()), f"{tag} K2: odd rows not "
           f"descending")
@@ -3783,8 +3751,8 @@ def phase_rowsort_alternating(tag, calls, earlier, kernels):
     print(f"{tag} K2 rowsort_compact(alternating=True) at the frame's "
           f"{key.shape[0]:,} slots (row_len {row_len}, keep {keep}): keys, "
           f"values, live and dropped ({int(got[3]):,}) equal plain exactly, "
-          f"odd rows descending, a second launch bit-equal; the ascending "
-          f"form bit-equal to the earlier form; kernel {ms:.3f} ms, "
+          f"odd rows descending, a second launch bit-equal; kernel "
+          f"{ms:.3f} ms, "
           f"ascending {asc_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
           f"{res['bound_ms']:.3f} ms ({res['bound_by']})")
     return {"K2 rowsort_compact": _sites([res])}, launches
@@ -3802,10 +3770,7 @@ def phase_beta_frame(dev, params, camera, kernels, converged_frame,
     from fourdgs_torch.ops import tail_cuda
     from fourdgs_torch.render import tiles as TT
     from fourdgs_torch.render.autoconfig import auto_render_config
-    from fourdgs_torch.tools import earlier_forms as EF
 
-    e7, e9 = EF.tail_kernels()
-    e2 = EF.rowsort_kernel()
     cfg = dataclasses.replace(auto_render_config(N_FULL, W_FULL, H_FULL),
                               tail_depth_beta=BETA)
     t0 = time.time()
@@ -3820,13 +3785,13 @@ def phase_beta_frame(dev, params, camera, kernels, converged_frame,
     path = f"converged, tail_depth_beta {BETA:g}"
     results = {path: phase_weighted_tail(
         "(v1)", cap["tail_cuda.tail_accumulate"],
-        cap_b["tail_cuda.tail_accumulate_bwd"], (e7, e9))}
+        cap_b["tail_cuda.tail_accumulate_bwd"])}
     step_path = f"converged grad step, tail_depth_beta {BETA:g}"
     results[step_path] = {"K9 tail_accumulate_bwd":
                           results[path].pop("K9 tail_accumulate_bwd")}
     alt_path = "rowsort_compact(alternating=True)"
     results[alt_path], alt_launches = phase_rowsort_alternating(
-        "(v2)", cap["tiles.rowsort_compact"], e2, kernels)
+        "(v2)", cap["tiles.rowsort_compact"], kernels)
     del cap, cap_b
     torch.cuda.empty_cache()
     for over in (dict(tail_alpha_power=1), dict(tail_depth_beta=BETA)):
@@ -3875,29 +3840,89 @@ def _shard_render(D, exchange, splats, cam, t, mesh, cfg, budget):
         splats, cam, t, mesh, cfg=cfg, send_budget=budget, return_aux=True)
 
 
-def _converged_bounds(tag, img_sh, img_ref, th, tw, hold_p99=True):
+def _converged_bounds(tag, img_sh, img_ref, th, tw, p99_max=0.05,
+                      mask=None):
     """The reference's bounds of the sharded converged frame against the
-    single-chip one (tests/test_parallel.py): means, mean |d|, p99 (where
-    hold_p99), seams."""
+    single-chip one (tests/test_parallel.py): means, mean |d|, the per-pixel
+    p99 (the reference's 0.05 unless p99_max says otherwise), seams; with an
+    (H, W) mask, over its pixels and without the seams (a masked-out
+    neighbour's tail reaches across the border)."""
     import torch
     d = (img_sh[..., :3] - img_ref[..., :3]).abs()
-    m_sh, m_ref = float(img_sh[..., :3].mean()), float(img_ref[..., :3].mean())
     dm = d.mean(-1)
-    p99 = float(torch.quantile(dm.flatten().float()[::7], 0.99))
-    ys = torch.arange(dm.shape[0], device=dm.device)[:, None]
-    xs = torch.arange(dm.shape[1], device=dm.device)[None, :]
-    border = ((ys % th == 0) | (ys % th == th - 1) | (xs % tw == 0)
-              | (xs % tw == tw - 1))
-    b_err, i_err = float(dm[border].mean()), float(dm[~border].mean())
-    check(abs(m_sh - m_ref) < 0.01 * max(m_ref, 0.01) + 1e-4
-          and float(d.mean()) < 0.01 and (p99 < 0.05 or not hold_p99)
-          and b_err < 2.0 * i_err + 1e-4,
-          f"{tag} converged sharded vs single chip: means {m_sh:.5f} / "
-          f"{m_ref:.5f}, mean |d| {float(d.mean()):.3e}, p99 {p99:.3e}, "
-          f"border {b_err:.3e} vs interior {i_err:.3e}")
-    return (f"means {m_sh:.5f} / {m_ref:.5f}, mean |d| "
-            f"{float(d.mean()):.3e}, p99 {p99:.3e}, border {b_err:.3e} "
-            f"vs interior {i_err:.3e}")
+    sel = (slice(None),) if mask is None else (mask,)
+    m_sh = float(img_sh[sel][..., :3].mean())
+    m_ref = float(img_ref[sel][..., :3].mean())
+    p99 = float(torch.quantile(dm[sel].flatten().float()[::7], 0.99))
+    seams = ""
+    ok = True
+    if mask is None:
+        ys = torch.arange(dm.shape[0], device=dm.device)[:, None]
+        xs = torch.arange(dm.shape[1], device=dm.device)[None, :]
+        border = ((ys % th == 0) | (ys % th == th - 1) | (xs % tw == 0)
+                  | (xs % tw == tw - 1))
+        b_err, i_err = float(dm[border].mean()), float(dm[~border].mean())
+        ok = b_err < 2.0 * i_err + 1e-4
+        seams = f", border {b_err:.3e} vs interior {i_err:.3e}"
+    mean_d = float(d[sel].mean())
+    how = (f"means {m_sh:.5f} / {m_ref:.5f}, mean |d| {mean_d:.3e}, p99 "
+           f"{p99:.3e} (bound {p99_max:g}){seams}")
+    check(ok and abs(m_sh - m_ref) < 0.01 * max(m_ref, 0.01) + 1e-4
+          and mean_d < 0.01 and p99 < p99_max,
+          f"{tag} converged sharded vs single chip: {how}")
+    return how
+
+
+def _single_chip_parts(single, sharded):
+    """(the single-chip frame single(), the (args, kwargs, result) of its
+    bin_splats call, sharded() with the band cuts and depth extremes the
+    single-chip frame took from its own sample in place of those of its
+    2,048-entry shard sample)."""
+    from fourdgs_torch.ops import tail_cuda as TL
+    from fourdgs_torch.render import pipeline as TP
+    orig = TL.global_band_cuts, TL.global_band_extremes, TP.bin_splats
+    seen = {}
+
+    def record(name, fn):
+        def wrapped(*args, **kwargs):
+            check(name not in seen, f"{name}: called twice in one frame")
+            seen[name] = fn(*args, **kwargs)
+            if name == "bin_splats":
+                seen["bin_call"] = (args, kwargs, seen[name])
+            return seen[name]
+        return wrapped
+    try:
+        TL.global_band_cuts = record("global_band_cuts", orig[0])
+        TL.global_band_extremes = record("global_band_extremes", orig[1])
+        TP.bin_splats = record("bin_splats", orig[2])
+        ref = single()
+        check("global_band_cuts" in seen and "bin_call" in seen,
+              "the single-chip frame took no band cuts or no binning")
+        TP.bin_splats = orig[2]
+        TL.global_band_cuts = lambda samp, k: seen["global_band_cuts"]
+        TL.global_band_extremes = lambda samp: seen["global_band_extremes"]
+        return ref, seen["bin_call"], sharded()
+    finally:
+        TL.global_band_cuts, TL.global_band_extremes, TP.bin_splats = orig
+
+
+def _heads_differ(bin_call, head_cap, shape, th, tw):
+    """(H, W) bool: the pixels of the tiles whose single-chip head (its
+    binning: depth prune, then at most head_cap nearest) holds other pairs
+    than the sharded route's (no prune: the head_cap nearest of all, the
+    same tie rule), from the binning call recorded by _single_chip_parts
+    rebinned with a prune that keeps every pair."""
+    from fourdgs_torch.render import tiles as TT
+    args, kwargs, pruned = bin_call
+    whole = TT.bin_splats(*args, **dict(kwargs, depth_prune_cap=1 << 24,
+                                        compact_keep_cols=0))
+    check(int(whole.prune_underkeep) == 0 and int(whole.overflowed)
+          == int(pruned.overflowed), "the rebinning without a prune lost "
+          "pairs")
+    differ = pruned.head_counts != whole.head_counts
+    ny, nx = TT.tile_grid(shape[1], shape[0], th, tw)
+    return (differ.reshape(ny, nx).repeat_interleave(th, 0)
+            .repeat_interleave(tw, 1)[:shape[0], :shape[1]])
 
 
 def phase_sharded(dev, kernels):
@@ -3917,6 +3942,15 @@ def phase_sharded(dev, kernels):
         return out
     finally:
         dist.destroy_process_group()
+
+
+# The per-pixel p99 bound of the whole sharded converged 1M frame against
+# the single-chip one: the readings of that frame on an H100 80GB HBM3 at
+# 700 W (0.0598 at beta 0, 0.0607 at beta 8; PERF.md) with a third of
+# headroom, in place of the reference's 0.05 for its 1,024-splat scene,
+# as 6% of its pixels lie in tiles whose heads differ by design (ROADMAP
+# C-R14); the other tiles are held at 0.05.
+CONVERGED_P99 = 0.08
 
 
 def _sharded_full(dev, kernels, mesh):
@@ -3964,20 +3998,48 @@ def _sharded_full(dev, kernels, mesh):
             check(bool(torch.isfinite(img).all())
                   and float(img[..., :3].mean()) > 0.01, f"{tag}: bad image")
             if mode == "converged":
-                # The reference's bounds of its 1,024-splat test scene,
-                # but for the per-pixel p99, which is reported: at this
-                # size the two routes' band cuts (a 2,048-entry sample of
-                # the shard, a 1/64 block sample on one chip) put about 1%
-                # of the pixels 0.05-0.06 apart, with and without the
-                # depth weight (ROADMAP C-R14); beta 0 shows the gap is not
-                # the weight's.
-                cfg0 = dataclasses.replace(cfg, tail_depth_beta=0.0)
-                how0 = _converged_bounds(
-                    tag + " beta 0", render(cfg0)[0],
-                    TP.render_splats4d(splats, cam, t, cfg=cfg0),
-                    cfg.tile_h, cfg.tile_w, hold_p99=False)
-                how = (f"beta 0: {how0}; beta {BETA:g}: " + _converged_bounds(
-                    tag, img, ref, cfg.tile_h, cfg.tile_w, hold_p99=False))
+                # The routes differ by design where the single chip's depth
+                # prune left a tile's head short of the head_cap nearest
+                # pairs, which the sharded route (no prune, as the
+                # reference's) keeps (ROADMAP C-R14). The whole frame at the
+                # reference's bounds of its 1,024-splat scene, the p99 at
+                # CONVERGED_P99; the pixels of the other tiles at all of
+                # them. The sharded frame again with the single chip's band
+                # cuts and depth extremes shows what the samples add; beta 0
+                # shows the gap is not the weight's.
+                parts = []
+                for label, c in (
+                        ("beta 0", dataclasses.replace(cfg,
+                                                       tail_depth_beta=0.0)),
+                        (f"beta {BETA:g}", cfg)):
+                    mine = render(c)[0]
+                    single, bin_call, handed = _single_chip_parts(
+                        lambda c=c: TP.render_splats4d(splats, cam, t,
+                                                       cfg=c),
+                        lambda c=c: render(c)[0])
+                    differ = _heads_differ(bin_call, c.max_splats_per_tile,
+                                           single.shape, c.tile_h, c.tile_w)
+                    whole = _converged_bounds(
+                        f"{tag} {label}", mine, single, c.tile_h, c.tile_w,
+                        CONVERGED_P99)
+                    rest = _converged_bounds(
+                        f"{tag} {label}, tiles of equal heads", mine,
+                        single, c.tile_h, c.tile_w, mask=~differ)
+                    samp = _converged_bounds(
+                        f"{tag} {label}, the single chip's band cuts",
+                        handed, single, c.tile_h, c.tile_w, CONVERGED_P99)
+                    d_in = (mine[differ][..., :3]
+                            - single[differ][..., :3]).abs().mean(-1)
+                    share = float(differ.float().mean())
+                    parts.append(
+                        f"{label}: {whole}; the {share:.3f} of the pixels "
+                        f"in tiles of other heads: mean |d| "
+                        f"{float(d_in.mean()):.3e}, p99 "
+                        f"{float(torch.quantile(d_in[::7].float(), 0.99)):.3e};"
+                        f" the rest: {rest}; with the single chip's band "
+                        f"cuts: {samp}, max |d| to the route's own "
+                        f"{float((handed - mine).abs().max()):.3e}")
+                how = "; ".join(parts)
             else:
                 err = float((img - ref).abs().max())
                 check(err <= 3e-5, f"{tag}: max |d| {err:.3e} against the "
@@ -4099,8 +4161,7 @@ def _k7_sites(tag, calls):
         got, want = TL.tail_accumulate(*args, **kw), plain()
         torch.cuda.synchronize()
         d = (got - want).abs()
-        bad = d > K7_ATOL * max(1.0, float(want.abs().max())) \
-            + K7_RTOL * want.abs()
+        bad = k7_outside(got, want)
         check(not bool(bad.any()) and float(want.abs().sum()) > 0,
               f"{tag} K7: {int(bad.sum())} entries outside tolerance, max "
               f"|d| {float(d.max()):.3e}")
@@ -4124,13 +4185,14 @@ def _k7_sites(tag, calls):
 def _sharded_small(dev, mesh):
     """(v5): 20K frames and gradients of the three sharded modes at world
     size 1. Card against CPU: frames under the tie tolerance (mean < 1e-4,
-    fewer than 1% of pixels above 1e-3) and losses within 1e-5 relative;
-    the gradients card against CPU are reported beside the single-chip
-    path's own (the dataclass splats' scale3 gradient differs between the
-    devices for both, ROADMAP C-R15). On the card, the non-converged modes'
-    sharded loss and gradients against the single-chip ones of the same
-    config, within 1e-5 and 1e-4 of each field's max (the same
-    arithmetic)."""
+    fewer than 1% of pixels above 1e-3), losses within 1e-5 relative, and
+    gradients under the tie rule (per field, relative to its max: fewer
+    than 2% of splats above 1e-3, and a mean below 3e-4 without the one
+    splat whose scale3 gradient the single-chip path of the same config
+    gets worst, ROADMAP C-R15), reported beside the single-chip path's own.
+    On the card, the non-converged modes' sharded loss and gradients
+    against the single-chip ones of the same config, within 1e-5 and 1e-4
+    of each field's max (the same arithmetic)."""
     import torch
     from fourdgs_torch.core.camera import Camera
     from fourdgs_torch.parallel import distributed as D
@@ -4150,16 +4212,20 @@ def _sharded_small(dev, mesh):
         loss.backward()
         return float(loss.detach()), {k: v.grad.cpu() for k, v in p.items()}
 
-    def field_errs(got, want):
+    def splat_errs(got, want):
+        """{field: (N,) the largest |d| of each splat over its max |g|}."""
         out = {}
         for k in want:
             scale = float(want[k].abs().max())
             check(scale > 0, f"(v5) zero gradient of {k}")
-            e = ((got[k] - want[k]).abs().reshape(want[k].shape[0], -1)
-                 .amax(1) / scale)
-            out[k] = (float(e.mean()), float((e > 1e-3).float().mean()),
-                      float(e.max()))
+            out[k] = ((got[k] - want[k]).abs().reshape(want[k].shape[0], -1)
+                      .amax(1) / scale)
         return out
+
+    def field_errs(got, want):
+        return {k: (float(e.mean()), float((e > 1e-3).float().mean()),
+                    float(e.max()))
+                for k, e in splat_errs(got, want).items()}
     lines = []
     for mode, (exchange, cfg) in shard_cfgs(N_SMALL, W_SMALL,
                                             H_SMALL).items():
@@ -4183,8 +4249,6 @@ def _sharded_small(dev, mesh):
         check(ag == ac, f"{tag}: aux card {ag} vs CPU {ac}")
         check(abs(lg - lc) <= 1e-5 * abs(lc), f"{tag}: loss card {lg} vs "
               f"CPU {lc}")
-        dev_errs = field_errs(gg, gc_)
-
         def single_on(d):
             def single(p, tg):
                 img = TP.render_splats4d(D.materialize_splats(p), cams[d],
@@ -4194,9 +4258,20 @@ def _sharded_small(dev, mesh):
         ls, gs = grads(params, dev, single_on(str(dev)))
         _, gs_c = grads(params_c, "cpu", single_on("cpu"))
         single_errs = field_errs(gs, gs_c)
+        odd = int(splat_errs(gs, gs_c)["scale3"].argmax())
+        dev_errs = field_errs(gg, gc_)
+        held = {}
+        for k, e in splat_errs(gg, gc_).items():
+            rest = torch.cat([e[:odd], e[odd + 1:]])
+            share, mean = float((e > 1e-3).float().mean()), float(rest.mean())
+            check(share < 0.02 and mean < 3e-4, f"{tag}: gradient of {k} "
+                  f"card vs CPU: {share:.2e} of splats above 1e-3 of its "
+                  f"max, mean {mean:.3e} without splat {odd}")
+            held[k] = float(f"{mean:.3e}")
         if mode != "converged":
-            # The converged routes differ by design (band cuts, the head's
-            # prune, C-R14): their losses and gradients are not compared.
+            # The converged routes differ by design (the head's prune,
+            # the samples of the band cuts and depth extremes; C-R14):
+            # their losses and gradients are not compared.
             check(abs(lg - ls) <= 1e-5 * abs(ls), f"{tag}: sharded loss "
                   f"{lg} vs single chip {ls}")
             for k, (_, _, mx) in field_errs(gg, gs).items():
@@ -4206,7 +4281,9 @@ def _sharded_small(dev, mesh):
             f"{mode}: frame mean |d| {float(err.mean()):.3e}, loss rel "
             f"{abs(lg - lc) / abs(lc):.2e}, sharded vs single-chip loss rel "
             f"{abs(lg - ls) / abs(ls):.2e}; gradients card vs CPU per field "
-            f"(mean, share > 1e-3, max of a splat / field max), sharded "
+            f"(mean, share > 1e-3, max of a splat / field max; the single "
+            f"chip's worst scale3 splat {odd}; the mean without it, held "
+            f"below 3e-4: {json.dumps(held)}), sharded "
             + json.dumps({k: [float(f"{x:.3e}") for x in v]
                           for k, v in dev_errs.items()})
             + ", single chip "
@@ -4279,11 +4356,8 @@ def main() -> int:
     from fourdgs_torch.tools.prepass_split import (block_chunk_kernel,
                                                    word_kernels)
     from fourdgs_torch.tools.sort_split import shared_stage_kernels
-    from fourdgs_torch.tools import earlier_forms
     build_kernels(list(kernels.values()) + list(shared_stage_kernels())
-                  + [block_chunk_kernel(), *word_kernels(),
-                     *earlier_forms.tail_kernels(),
-                     earlier_forms.rowsort_kernel()])
+                  + [block_chunk_kernel(), *word_kernels()])
     print(f"(a) {kind}, {torch.cuda.device_count()} visible, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built "
           f"in {time.time() - t0:.1f} s")

@@ -41,7 +41,7 @@ def test_package_never_imports_jax():
         "for m in ('ops.sort_checks', 'io.png', 'io.native', 'io.vdata',\n"
         "          'scenes.models', 'scenes.scenes', 'parallel.distributed',\n"
         "          'parallel.mesh', 'parallel.multihost', 'entry',\n"
-        "          'tools.earlier_forms',\n"
+        "          'tools.parent_parity',\n"
         "          'train.densify', 'train.trainer', 'render.overlay',\n"
         "          'viewer.cli', 'utils.simplex', 'utils.misc',\n"
         "          'utils.profiling', 'examples.fit_motion',\n"
