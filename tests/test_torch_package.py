@@ -41,7 +41,8 @@ def test_package_never_imports_jax():
         "for m in ('ops.sort_checks', 'io.png', 'io.native', 'io.vdata',\n"
         "          'scenes.models', 'scenes.scenes', 'parallel.distributed',\n"
         "          'parallel.mesh', 'parallel.multihost', 'entry',\n"
-        "          'tools.parent_parity',\n"
+        "          'tools.parent_parity', 'tools.validate_kernels',\n"
+        "          'tools.eigen_condition',\n"
         "          'train.densify', 'train.trainer', 'render.overlay',\n"
         "          'viewer.cli', 'utils.simplex', 'utils.misc',\n"
         "          'utils.profiling', 'examples.fit_motion',\n"
@@ -49,7 +50,8 @@ def test_package_never_imports_jax():
         "          'examples.render_cube_sweep'):\n"
         "    assert 'fourdgs_torch.' + m in mods, (m, mods)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'fourdgs', 'triton'))\n"
+        "('jax', 'jaxlib', 'fourdgs', 'triton', 'bench',\n"
+        "                              'validate_kernels'))\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
