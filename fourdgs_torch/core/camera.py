@@ -12,6 +12,7 @@ import dataclasses
 from typing import Tuple
 
 import torch
+from torch.profiler import record_function
 
 from fourdgs_torch import resolve_device
 from fourdgs_torch.core.transforms import rotate_about_axis
@@ -69,13 +70,17 @@ class Camera:
                width=800, height=800, device=None) -> "Camera":
         """Reference defaults (fov 60 deg, near 0.1, far 5000); on
         `device`, by default the card (fourdgs_torch.default_device)."""
-        device = resolve_device(device)
+        # A range around the camera's copies to the device, which a viewer
+        # makes each frame.
+        with record_function("fourdgs::camera"):
+            device = resolve_device(device)
 
-        def f32(x):
-            return torch.as_tensor(x, dtype=torch.float32, device=device)
-        return Camera(position=f32(position), orientation=f32(orientation),
-                      up=f32(up), fov_deg=f32(fov_deg), near=f32(near),
-                      far=f32(far), width=int(width), height=int(height))
+            def f32(x):
+                return torch.as_tensor(x, dtype=torch.float32, device=device)
+            return Camera(position=f32(position),
+                          orientation=f32(orientation), up=f32(up),
+                          fov_deg=f32(fov_deg), near=f32(near),
+                          far=f32(far), width=int(width), height=int(height))
 
     @property
     def device(self) -> torch.device:

@@ -62,6 +62,8 @@ from fourdgs_torch.splats.gaussians import (Splats2D, Splats3D, Splats4D,
                                             mean_in_time_sortkey)
 
 ALPHA_MAX = 1.0 - 1e-6
+# The range around each public render call: one a frame, never nested.
+FRAME = "fourdgs::frame"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,9 +210,13 @@ def render_projected(proj: Projected, camera: Camera,
         raise ValueError(f"unknown backend {cfg.backend!r}")
     if cfg.tail_mode not in ("off", "banded"):
         raise ValueError(f"unknown tail_mode {cfg.tail_mode!r}")
+    # The projection matrix and the background are copied from host numbers
+    # (the copy waits for the stream): each has a range, so the device's
+    # idle while the host waits has a name.
     if p00 is None:
-        pmat = camera.proj_matrix()
-        p00, p11 = pmat[0, 0], pmat[1, 1]
+        with record_function("fourdgs::proj_matrix"):
+            pmat = camera.proj_matrix()
+            p00, p11 = pmat[0, 0], pmat[1, 1]
     w, h = camera.width, camera.height
     use_quant = cfg.quantized_depth_sort
     if not use_quant:
@@ -227,8 +233,9 @@ def render_projected(proj: Projected, camera: Camera,
         rows_per_band, n_bands = ny0, 1
     px, py, _ = tile_pixel_ndc(w, h, cfg.tile_h, cfg.tile_w,
                                device=proj.mx.device)
-    bg = torch.tensor(cfg.background, dtype=proj.mx.dtype,
-                      device=proj.mx.device)
+    with record_function("fourdgs::background"):
+        bg = torch.tensor(cfg.background, dtype=proj.mx.dtype,
+                          device=proj.mx.device)
     band_tiles, band_resid, binnings, band_max_pairs = [], [], [], []
     for b in range(n_bands):
         lo_row = b * rows_per_band
@@ -409,35 +416,41 @@ def _apply_banded_tail(out, proj: Projected, binning, p00, p11,
     transmittance. With tile_row_band = (ty_base, ny) the carry, the cut
     table and the tail grid are those of one band of tile rows. Returns the
     updated carry."""
-    ny, nx = tile_grid(w, h, cfg.tile_h, cfg.tile_w)
-    alive, tx0, tx1, ty0, ty1 = splat_tile_bbox(proj, p00, p11, w, h,
-                                                cfg.tile_h, cfg.tile_w)
-    ty_base = 0
-    if tile_row_band is not None:
-        # The binning's clip, so the tail's tile ids match the band-relative
-        # cut table.
-        ty_base = tile_row_band[0]
-        alive, ty0, ty1, ny = clip_to_tile_row_band(alive, ty0, ty1,
-                                                    tile_row_band)
-    dbits = quantized_depth_bits(proj.depth)
-    cut = binning.prune_cut
-    k_bands = cfg.tail_bands
+    # The plain set-up: everything the tail computes before its kernels.
+    with record_function("fourdgs::tail_setup"):
+        ny, nx = tile_grid(w, h, cfg.tile_h, cfg.tile_w)
+        alive, tx0, tx1, ty0, ty1 = splat_tile_bbox(proj, p00, p11, w, h,
+                                                    cfg.tile_h, cfg.tile_w)
+        ty_base = 0
+        if tile_row_band is not None:
+            # The binning's clip, so the tail's tile ids match the
+            # band-relative cut table.
+            ty_base = tile_row_band[0]
+            alive, ty0, ty1, ny = clip_to_tile_row_band(alive, ty0, ty1,
+                                                        tile_row_band)
+        dbits = quantized_depth_bits(proj.depth)
+        cut = binning.prune_cut
+        k_bands = cfg.tail_bands
 
-    # Band cuts from a block subsample (K3) at scale; the full array below
-    # 16384 splats. The switch changes the sample and so the cuts.
-    n = dbits.shape[0]
-    db_live = torch.where(alive, dbits, DEAD)
-    if n >= 16384 and n % 128 == 0:
-        db_live, = sample_blocks([db_live], stride_rows=64, take_rows=1)
-    band_cuts = TL.global_band_cuts(db_live, k_bands)
+        # Band cuts from a block subsample (K3) at scale; the full array
+        # below 16384 splats. The switch changes the sample and so the cuts.
+        n = dbits.shape[0]
+        db_live = torch.where(alive, dbits, DEAD)
+        if n >= 16384 and n % 128 == 0:
+            db_live, = sample_blocks([db_live], stride_rows=64, take_rows=1)
+        band_cuts = TL.global_band_cuts(db_live, k_bands)
 
-    by, bx = cfg.tail_block
-    s_cy, s_cx = cfg.tile_h // by, cfg.tile_w // bx
-    if s_cy * by != cfg.tile_h or s_cx * bx != cfg.tile_w:
-        raise ValueError(f"tail_block {cfg.tail_block} does not divide the "
-                         f"{cfg.tile_h}x{cfg.tile_w} tile")
-    params_row = TL.tail_params_row(cfg.tile_h, cfg.tile_w, cfg.tail_block,
-                                    w, h, p00, p11, ty_base)
+        by, bx = cfg.tail_block
+        s_cy, s_cx = cfg.tile_h // by, cfg.tile_w // bx
+        if s_cy * by != cfg.tile_h or s_cx * bx != cfg.tile_w:
+            raise ValueError(f"tail_block {cfg.tail_block} does not divide "
+                             f"the {cfg.tile_h}x{cfg.tile_w} tile")
+        # The kernels' constants, copied from host numbers one by one: each
+        # copy waits for the stream.
+        with record_function("fourdgs::tail_params"):
+            params_row = TL.tail_params_row(cfg.tile_h, cfg.tile_w,
+                                            cfg.tail_block, w, h, p00, p11,
+                                            ty_base)
     wd = dict(alpha_pow=cfg.tail_alpha_power, exact_clip=cfg.tail_exact_clip)
     chunk = cfg.tail_chunk
     budget = cfg.max_tiles_per_splat
@@ -588,14 +601,26 @@ def render_params4d_packed(params: Dict[str, torch.Tensor], camera: Camera,
     """The flagship path on the packed scalar-SoA parameterization: `params`
     is a dict of (N,) float32 tensors (PARAM4D_FIELDS) on the camera's
     device."""
-    with record_function("fourdgs::project"):
-        proj = project_params4d(params, camera, t, min_opacity)
-    return render_projected(proj, camera, cfg, return_aux=return_aux)
+    with record_function(FRAME):
+        with record_function("fourdgs::project"):
+            proj = project_params4d(params, camera, t, min_opacity)
+        return render_projected(proj, camera, cfg, return_aux=return_aux)
 
 
 # ---------------------------------------------------------------------------
 # entry points of the dataclass splats (render/dense.py's signatures)
 # ---------------------------------------------------------------------------
+
+def _render_splats3d(splats: Splats3D, camera: Camera, opacity, sort_mean3,
+                     cfg: RenderConfig, return_aux: bool):
+    op = (torch.ones((splats.count,), dtype=splats.position.dtype,
+                     device=splats.position.device)
+          if opacity is None else opacity)
+    with record_function("fourdgs::project"):
+        proj = project_splats(splats.position, splats.cov, splats.color, op,
+                              camera, sort_mean3=sort_mean3)
+    return render_projected(proj, camera, cfg, return_aux=return_aux)
+
 
 def render_splats3d(splats: Splats3D, camera: Camera,
                     opacity: Optional[torch.Tensor] = None,
@@ -604,13 +629,9 @@ def render_splats3d(splats: Splats3D, camera: Camera,
                     return_aux: bool = False):
     """Tiled render of 3D splats, with an optional per-splat opacity (a
     sliced 4D scene) and sorting position."""
-    op = (torch.ones((splats.count,), dtype=splats.position.dtype,
-                     device=splats.position.device)
-          if opacity is None else opacity)
-    with record_function("fourdgs::project"):
-        proj = project_splats(splats.position, splats.cov, splats.color, op,
-                              camera, sort_mean3=sort_mean3)
-    return render_projected(proj, camera, cfg, return_aux=return_aux)
+    with record_function(FRAME):
+        return _render_splats3d(splats, camera, opacity, sort_mean3, cfg,
+                                return_aux)
 
 
 def render_splats2d(splats: Splats2D, camera: Camera,
@@ -621,12 +642,13 @@ def render_splats2d(splats: Splats2D, camera: Camera,
     (the index), so the pipeline's front-to-back reversal applies
     unchanged."""
     from fourdgs_torch.render.dense import project_splats2d
-    proj, p00e, p11e = project_splats2d(splats, camera)
-    proj = dataclasses.replace(
-        proj, depth=torch.arange(proj.count, dtype=proj.mx.dtype,
-                                 device=proj.mx.device))
-    return render_projected(proj, camera, cfg, p00=p00e, p11=p11e,
-                            return_aux=return_aux)
+    with record_function(FRAME):
+        proj, p00e, p11e = project_splats2d(splats, camera)
+        proj = dataclasses.replace(
+            proj, depth=torch.arange(proj.count, dtype=proj.mx.dtype,
+                                     device=proj.mx.device))
+        return render_projected(proj, camera, cfg, p00=p00e, p11=p11e,
+                                return_aux=return_aux)
 
 
 def render_splats4d(splats: Splats4D, camera: Camera, t,
@@ -636,7 +658,8 @@ def render_splats4d(splats: Splats4D, camera: Camera, t,
     tiled ordered composite, sorted by the reference's quirky sorting mean
     (splats.gaussians.mean_in_time_sortkey). For 10M+ splats use
     render_params4d_packed: it never builds (N, 4, 4) covariances."""
-    sliced, top = splats.at_time(t, min_opacity)
-    sort_mean = mean_in_time_sortkey(splats.position, splats.cov, t)
-    return render_splats3d(sliced, camera, opacity=top, sort_mean3=sort_mean,
-                           cfg=cfg, return_aux=return_aux)
+    with record_function(FRAME):
+        sliced, top = splats.at_time(t, min_opacity)
+        sort_mean = mean_in_time_sortkey(splats.position, splats.cov, t)
+        return _render_splats3d(sliced, camera, top, sort_mean, cfg,
+                                return_aux)

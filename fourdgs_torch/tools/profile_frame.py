@@ -12,10 +12,12 @@ then non-converged, reports after 3 warm-up frames:
   * the median wall time of 10 unprofiled frames (host clock, each frame
     ending in `torch.cuda.synchronize()`);
   * a `torch.profiler` trace of 5 frames, each inside a
-    `fourdgs::frame` range. Every device operation (kernel, memcpy,
+    `profile_frame::frame` range. Every device operation (kernel, memcpy,
     memset) is mapped through its launch's correlation id to the innermost
     `fourdgs::*` range open when it was launched, so the kernels launched
-    through ctypes are attributed like any other. Per stage: device ms per
+    through ctypes are attributed like any other; the program's own
+    `fourdgs::frame` around each render call is the stage of the entry's
+    glue between the other stages. Per stage: device ms per
     frame (exclusive of nested ranges), host ms per frame (the range's
     duration, inclusive of nested ranges) and device operations per frame;
     per frame: operations, busy ms (the union of the device intervals of
@@ -59,7 +61,7 @@ WARMUP, TIMED, PROFILED = 3, 10, 5
 MERGE_KEEP = 512       # power-of-two keep of the kernel-sorted frame
 GRAD_T = 0.37          # at t = pt the temporal fields get no gradient
 PREFIX = "fourdgs::"
-FRAME = PREFIX + "frame"
+FRAME = "profile_frame::frame"     # the tool's unit, outside the program's
 BACKWARD = PREFIX + "backward"
 OUTSIDE = "(outside the stages)"
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -79,14 +81,15 @@ def _union_ms(intervals) -> float:
 
 def attribute_trace(events: List[dict]) -> dict:
     """Stage breakdown of a chrome trace's `traceEvents` holding one or more
-    `fourdgs::frame` ranges (one host thread launching). Returns per-frame
-    means: {"frames", "frame_ms", "ops", "busy_ms", "idle_traced",
+    `profile_frame::frame` ranges (one host thread launching). Returns
+    per-frame means: {"frames", "frame_ms", "ops", "busy_ms", "idle_traced",
     "stages": {name: {"device_ms", "host_ms", "ops"}}}; device operations
     launched outside every frame are ignored."""
     ranges = sorted(
         ((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
          if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-         and e.get("name", "").startswith(PREFIX)),
+         and (e.get("name", "").startswith(PREFIX)
+              or e.get("name") == FRAME)),
         key=lambda r: (r[0], -r[1]))
     frames = [r for r in ranges if r[2] == FRAME]
     stages = [r for r in ranges if r[2] != FRAME]

@@ -1,2 +1,1 @@
-"""Utilities (port of fourdgs/utils/): simplex noise, small helpers, the
-per-stage profiling harness."""
+"""Utilities (port of fourdgs/utils/): simplex noise and small helpers."""

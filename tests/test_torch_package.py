@@ -45,7 +45,7 @@ def test_package_never_imports_jax():
         "          'tools.eigen_condition',\n"
         "          'train.densify', 'train.trainer', 'render.overlay',\n"
         "          'viewer.cli', 'utils.simplex', 'utils.misc',\n"
-        "          'utils.profiling', 'examples.fit_motion',\n"
+        "          'examples.fit_motion',\n"
         "          'examples.render_gallery',\n"
         "          'examples.render_cube_sweep'):\n"
         "    assert 'fourdgs_torch.' + m in mods, (m, mods)\n"
