@@ -3,13 +3,30 @@
 `BENCHMARK.json` at the checkout's root names the cell's configuration and
 traffic mix and lists the metrics. Each part is a file of its own:
 
-  benchmark/configs/<config>.json     the configuration as it is run
+  benchmark/configs/<config>.json     the configuration as it is run; its
+                                      "reference" names the plain reference
+  benchmark/reference/<reference>.py  that reference, importing nothing of
+                                      the program
+  benchmark/reference/<reference>.limits.json
+                                      the limit of each compared number
   benchmark/traffic/<traffic>.json    the traffic mix: {"kind": ..., params}
   benchmark/traffic/<kind>.py         the general generator of that kind
   benchmark/metrics/<metric>.py       one per-layer metric: read(ctx)
+  benchmark/bounds/<kernel>.py        one kernel's bytes and operations:
+                                      WRAPPERS (harness/roofline.py)
 
-so that a later cell, mix or metric is added with new files and entries
-only.
+so that a later cell, mix, reference, metric or kernel bound is added with
+new files and entries only.
+
+A kind's generator defines `Run(cell, seed, device)` with `trace_unit` (what
+a traced unit of work is: "frame", "step") and `wall_metric` (the key of
+`window()`'s wall time a unit), and the methods run.py calls in turn:
+setup() -> {part: seconds}; window(seconds) -> {"attempted": units, and
+every end-to-end metric but setup_s}; failed() -> units failed (a query;
+it may keep a report of them in `lossy`, which run.py prints); with
+--trace 1, trace() -> (harness.trace.Trace, harness.roofline.Recorder);
+release(), which frees the program's state; compare() -> every number its
+reference's limits file names, and whatever else it reports.
 """
 
 from __future__ import annotations

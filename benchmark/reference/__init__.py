@@ -1,3 +1,3 @@
 """Plain references of what the benchmark's cells time, in plain PyTorch,
-importing nothing of the program; `limits.json` holds each compared
-number's limit, by reference."""
+importing nothing of the program; `<reference>.limits.json` beside each
+holds the limit of every number its comparison gives."""

@@ -11,11 +11,14 @@ The cell is an entry of BENCHMARK.json's workloads: a configuration
 benchmark/traffic/<kind>.py). The run makes its inputs from the seed, sets
 up and warms up the program, measures for `--seconds`, compares what the
 measured window produced with the plain reference (benchmark/reference/),
-and prints one JSON object as the last line of standard output: correct,
-attempted, failed, metrics (the cell's end-to-end metrics, or with
---trace 1 its per-layer metrics, each read by benchmark/metrics/<name>.py
-from a profiler trace), device, and last the numbers compared, each beside
-its limit (also the last lines of standard error).
+each compared number against its limit in
+benchmark/reference/<reference>.limits.json, and prints one JSON object as
+the last line of standard output: correct, attempted, failed, metrics (the
+cell's end-to-end metrics, or with --trace 1 its per-layer metrics, each
+read by benchmark/metrics/<name>.py from a profiler trace, and the kernels'
+bounds recorded through benchmark/bounds/<kernel>.py), device, and last the
+numbers compared, each beside its limit (also the last lines of standard
+error).
 
 It exits with a code other than 0, and prints no result, when no CUDA
 device is there (or fewer than the cell asks for), or when JAX or the JAX
@@ -64,9 +67,16 @@ def parse_args(argv):
     return ap.parse_args(argv)
 
 
-def limits_for(config: dict) -> dict:
-    table = json.loads((BENCH / "reference" / "limits.json").read_text())
-    return table[config["reference"]]
+def limits_for(cell) -> dict:
+    """The limit of each number the cell's comparison gives, from its
+    reference's file under the cell's checkout:
+    benchmark/reference/<reference>.limits.json."""
+    path = (cell.root / "benchmark" / "reference" /
+            f"{cell.config['reference']}.limits.json")
+    if not path.is_file():
+        raise FileNotFoundError(f"no limits file {path} for the reference "
+                                f"{cell.config['reference']!r}")
+    return json.loads(path.read_text())
 
 
 def run_cell(cell, seed: int, seconds: float, trace: bool, device,
@@ -77,6 +87,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     import torch
     from harness import report
     cuda = device.type == "cuda"
+    limits = limits_for(cell)
     run = cell.traffic_module().Run(cell, seed, device)
     parts = dict(marks or {})
     parts.update(run.setup())
@@ -84,11 +95,12 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     values = run.window(seconds)
     values["setup_s"] = setup_s
     failed = run.failed()
-    attempted = values["frames"]
+    attempted = values["attempted"]
     memory_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    # A traffic kind may keep a report of its failures in `run.lossy`.
     print(f"window: {json.dumps(values)}; set-up parts {json.dumps(parts)}; "
-          f"failed {failed} of {attempted}: {json.dumps(run.lossy)}",
-          file=sys.stderr)
+          f"failed {failed} of {attempted}: "
+          f"{json.dumps(getattr(run, 'lossy', None))}", file=sys.stderr)
 
     metrics, extra = {}, {}
     busy_s = window_s = None
@@ -116,10 +128,13 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     t0 = time.perf_counter()
     got = run.compare()
     extra["reference_s"] = time.perf_counter() - t0
-    checks = {name: dict(value=got[name], limit=limit)
-              for name, limit in limits_for(cell.config).items()}
-    print(f"compared frames {got['frames']}, image gaps {got['gaps']}",
-          file=sys.stderr)
+    checks = {name: dict(value=got.get(name), limit=limit)
+              for name, limit in limits.items()}
+    also = {k: v for k, v in got.items() if k not in checks}
+    print("compared: " + ", ".join(
+        f"{name} {c['value']!r} (limit {c['limit']!r})"
+        for name, c in checks.items())
+        + f"; also {json.dumps(also, default=repr)}", file=sys.stderr)
     extra.update(card=report.card(0) if cuda else None, setup_parts=parts,
                  window=values)
     device_info = (report.device_block(torch, cell.chips, memory_peak,

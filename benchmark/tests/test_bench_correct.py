@@ -42,7 +42,7 @@ def pipeline():
 
 
 def test_sound_program_is_correct():
-    res = run_tiny()
+    res = run_tiny(seconds=8.0)
     assert res["correct"] is True
     assert res["failed"] == 0 and res["attempted"] >= 3
     assert list(res)[:5] == ["correct", "attempted", "failed", "metrics",
@@ -101,7 +101,7 @@ def control_gap(cell, seed, seconds, device):
 
 def test_control_is_not_correct():
     got = control_gap(tiny(), SEED, 1.0, torch.device("cpu"))
-    limit = RUN.limits_for(tiny().config)["image_gap"]
+    limit = RUN.limits_for(tiny())["image_gap"]
     assert got["image_gap"] > 3 * limit
 
 
@@ -112,7 +112,7 @@ def test_control_on_the_card(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the cell's own size")
     cell = Cell(name)
-    limit = RUN.limits_for(cell.config)["image_gap"]
+    limit = RUN.limits_for(cell)["image_gap"]
     for seed in (101, 2 ** 31 + 7, 4_000_000_000):
         got = control_gap(cell, seed, 2.0, torch.device("cuda", 0))
         assert got["image_gap"] > limit
@@ -122,5 +122,5 @@ def test_a_window_shorter_than_a_frame_keeps_its_frame():
     cell = tiny(n=4096, width=256, height=128)
     run = cell.traffic_module().Run(cell, SEED, torch.device("cpu"))
     run.setup()
-    assert run.window(0.0)["frames"] == 1
+    assert run.window(0.0)["attempted"] == 1
     assert [i for i, _ in run.kept] == [0]

@@ -11,6 +11,8 @@ from harness.spec import BENCH, Cell, load_module
 from harness.trace import Trace, kernel_names, union_s
 
 RUN = load_module(BENCH / "run.py", "bench_run_for_tests")
+LAYER_TESTS = load_module(BENCH / "tests" / "test_bench_layer_launches.py",
+                          "bench_layer_tests_for_metrics")
 
 # (name, start, end) of the host ranges of one frame, in us.
 RANGES = [("fourdgs::project", 10, 200), ("fourdgs::bin_sort", 200, 500),
@@ -76,9 +78,11 @@ def test_reader_reads_the_fixture(name):
 
 
 def test_every_listed_metric_has_a_tested_reader():
+    # The launch counts by layer and the tail's set-up time are tested in
+    # test_bench_layer_launches.py.
     names = {m["name"] for m in Cell("cube-10m-keep64.orbit-1080p").bench[
         "per_layer"]}
-    assert names == set(EXPECTED)
+    assert names == set(EXPECTED) | set(LAYER_TESTS.NEW)
 
 
 @pytest.mark.parametrize("name", ["project_ms.view", "tail_ms.view",

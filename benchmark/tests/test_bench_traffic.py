@@ -25,7 +25,10 @@ def test_cell_parts_found_by_name(name):
     assert cell.config["name"] == cell.entry["config"]
     assert {m["name"] for m in cell.end_to_end()} == {
         "frame_ms", "frame_p95_ms", "setup_s"}
-    assert len(cell.per_layer()) == 7
+    listed = [m["name"] for m in cell.bench["per_layer"]
+              if name in m.get("workloads", [])]
+    assert [m["name"] for m in cell.per_layer()] == listed
+    assert len(listed) == 13
     for m in cell.per_layer():
         assert hasattr(cell.metric_reader(m["name"]), "read")
 

@@ -77,7 +77,7 @@ def main(argv=None) -> int:
         values = run.window(args.seconds)
         failed = run.failed()
         rec = dict(seed=seed, setup_parts=parts, window=values,
-                   failed=failed, attempted=values["frames"],
+                   failed=failed, attempted=values["attempted"],
                    lossy=run.lossy,
                    memory_peak_bytes=torch.cuda.max_memory_allocated(device))
         if args.turn and n == 0:

@@ -71,7 +71,7 @@ class Run:
         import torch
         self.torch = torch
         self.seed, self.device = int(seed), device
-        self.mix, self.config = cell.mix, cell.config
+        self.mix, self.config, self.root = cell.mix, cell.config, cell.root
         self.w, self.h = int(self.mix["width"]), int(self.mix["height"])
         self.camera = self.config["camera"]
         self.kept = []            # (frame index, image) of compared frames
@@ -188,7 +188,7 @@ class Run:
                 break
         wall = time.perf_counter() - t_start
         self.frames_done = i
-        return dict(frames=i, frame_ms=wall * 1e3 / i,
+        return dict(attempted=i, frame_ms=wall * 1e3 / i,
                     frame_p95_ms=percentile(times_ms, 95.0),
                     frame_median_ms=statistics.median(times_ms),
                     window_s=wall)
@@ -221,7 +221,7 @@ class Run:
         from harness.trace import profile_units
         idx = self.traced_indices()
         tr = profile_units(self.frame, idx, self.device)
-        with Recorder() as rec:
+        with Recorder(self.root) as rec:
             for i in idx:
                 self.frame(i)
         return tr, rec
