@@ -28,16 +28,20 @@ def eigen2x2_scalar(a, b, c):
     with the reference's 1e-24 discriminant and 1e-6 eigenvalue clamps.
     Input [[a, b], [b, c]]; returns (lmin, lmax, v0x, v0y), (v0x, v0y) the
     unit lambda_min eigenvector. Where (b, lmin - a) vanishes (b == 0) the
-    eigenvector falls back to the axis of the smaller diagonal entry."""
+    eigenvector falls back to the axis of the smaller diagonal entry, and
+    its gradient is 0: the norm's square root and reciprocal are taken of
+    1 there, so that no 0 / 0 (the square root's gradient at 0, or an
+    overflowed 1 / norm^2) reaches the splat's parameters. The values are
+    the reference's bit for bit."""
     m = 0.5 * (a + c)
     p = a * c - b * b
     d = torch.sqrt(torch.clamp(m * m - p, min=1e-24))
     lmin = torch.clamp(m - d, min=LAMBDA_EPS)
     lmax = torch.clamp(m + d, min=LAMBDA_EPS)
     vx, vy = b, lmin - a
-    norm = torch.sqrt(vx * vx + vy * vy)
-    ok = norm > 1e-12
-    inv = 1.0 / torch.clamp(norm, min=1e-30)
+    norm2 = vx * vx + vy * vy
+    ok = torch.sqrt(norm2.detach()) > 1e-12
+    inv = 1.0 / torch.sqrt(torch.where(ok, norm2, 1.0))
     fx = (a <= c).to(a.dtype)
     fy = 1.0 - fx
     v0x = torch.where(ok, vx * inv, fx)
