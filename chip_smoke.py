@@ -67,7 +67,12 @@ on the same card at each of those call sites. Phases:
       packed projection, at that frame's inputs: its largest |d| against
       its plain version over every float field and `valid` exact at three
       times (one a 0-d tensor on the card), and timed alone (preallocated
-      outputs) beside the plain composition;
+      outputs) beside the plain composition; then K16, the binning's
+      pair-slot emission (two launches a band in every path that bins with
+      quantized keys), at that frame's projection: keys, splat indices,
+      the is-big flag, the big tier's ids and the overflow count bit-equal
+      to its plain version, each launch timed alone beside the plain
+      version and the whole emission with its id compaction;
   training (the gradient of a loss of the frame with respect to the packed
   params, at t = 0.37 so that every field's gradient is nonzero):
   (j) the backward kernels against their plain versions at the inputs one
@@ -293,6 +298,9 @@ KERNEL_INFO = {
     "K15 project4d": ("fourdgs_torch/ops/csrc/project4d.cu",
                       "none: XLA's fusion of fourdgs/render/pipeline.py:"
                       "728-740"),
+    "K16 emit_pair_keys": ("fourdgs_torch/ops/csrc/emit.cu",
+                           "none: XLA's fusion of fourdgs/render/tiles.py:"
+                           "184-252, 345-400"),
 }
 # K7 against its plain version: the kernel adds each covered sample's planes
 # with atomics in no fixed order, so sums of up to thousands of terms differ
@@ -1403,6 +1411,83 @@ def phase_project(tag, params, camera):
           f"{100 * res['bound_ms'] / res['ms']:.1f}%), plain "
           f"{res['plain_ms']:.3f} ms")
     return _sites([res])
+
+
+def phase_emit(tag, params, camera, cfg):
+    """K16 at the inputs of one frame of the packed params, band by band:
+    quantized_pair_keys (K16's two launches and the big tier's id
+    compaction between them) against its plain version, keys, splat
+    indices, big-tier ids and the overflow count bit-equal, and the main
+    launch's is-big flag against the plain version's; the main launch and
+    the big-tier launch timed alone beside the plain version and the whole
+    K16 emission. Its launches a frame are counted by the frames of
+    phase_full_frame."""
+    import torch
+    from fourdgs_torch.ops import emit_cuda as EC
+    from fourdgs_torch.render import pipeline as TP
+    from fourdgs_torch.render import tiles as TT
+
+    w, h, th, tw = camera.width, camera.height, cfg.tile_h, cfg.tile_w
+    budget, big = cfg.max_tiles_per_splat, cfg.big_splat_budget
+    keep = cfg.big_splat_keep_cols
+    proj = TP.project_params4d(params, camera, 0.0)
+    pmat = camera.proj_matrix()
+    p00, p11 = pmat[0, 0], pmat[1, 1]
+    ny, nx = TT.tile_grid(w, h, th, tw)
+    rows = ny if ny * nx < TT.TILE_LIMIT else TT.TILE_LIMIT // nx
+    bands = [None] if rows == ny else [(lo, min(rows, ny - lo))
+                                       for lo in range(0, ny, rows)]
+    n = proj.count
+    slots = TT.big_tier_slots(n, keep)
+    sites = []
+    for band in bands:
+        args = (proj, p00, p11, w, h, th, tw, budget, big, keep, band)
+        got = TT.quantized_pair_keys(*args)
+        want = TT.quantized_pair_keys_plain(*args)
+        for name, a, b in zip(("keys", "splat indices", "overflowed",
+                               "big-tier ids"), got, want):
+            check(torch.equal(a, b), f"{tag} K16 {name} differ from plain "
+                  f"at band {band}")
+        key, idx, _, is_big = EC.emit_pair_keys(proj, p00, p11, w, h, th, tw,
+                                                budget, big, slots, band)
+        alive, tx0, tx1, ty0, ty1 = TT.splat_tile_bbox(proj, p00, p11, w, h,
+                                                       th, tw)
+        if band is not None:
+            alive, ty0, ty1, _ = TT.clip_to_tile_row_band(alive, ty0, ty1,
+                                                          band)
+        check(torch.equal(is_big, alive & ((tx1 - tx0 + 1) * (ty1 - ty0 + 1)
+                                           > budget)),
+              f"{tag} K16 is-big flag differs from plain at band {band}")
+        ids, count = got[3], torch.zeros((), dtype=torch.int32,
+                                         device=key.device)
+        live = int((got[0] != TT.DEAD).sum())
+        times = turns_ms({
+            "main": lambda: EC.emit_pair_keys(proj, p00, p11, w, h, th, tw,
+                                              budget, big, slots, band),
+            "big": lambda: EC.emit_big_pair_keys(proj, p00, p11, w, h, th,
+                                                 tw, big, ids, key, idx,
+                                                 count, band),
+            "emission": lambda: TT.quantized_pair_keys(*args),
+            "plain": lambda: TT.quantized_pair_keys_plain(*args)}, 20)
+        m = ids.shape[0]
+        moved = (nbytes(*(getattr(proj, k) for k in EC.FIELDS), proj.valid,
+                        is_big) + 8 * budget * n
+                 + nbytes(ids) + 8 + (28 + 8 * big) * m)
+        res = site(f"{n:,} splats, band {band}", 0.0,
+                   times["main"] + times["big"], times["plain"], moved, 0)
+        res.update(main_ms=times["main"], big_ms=times["big"],
+                   emission_ms=times["emission"])
+        sites.append(res)
+        print(f"{tag} K16 emit_pair_keys, band {band}: bit-equal to plain "
+              f"({live:,} live slots of {got[0].shape[0]:,}, "
+              f"{int((ids != TT.DEAD).sum()):,} big ids of {m:,}, overflowed "
+              f"{int(got[2])}); main launch {times['main']:.4f} ms + big "
+              f"tier {times['big']:.4f} ms (bound {res['bound_ms']:.4f}, "
+              f"{100 * res['bound_ms'] / res['ms']:.1f}%); the emission "
+              f"with its id compaction {times['emission']:.3f} ms; plain "
+              f"{times['plain']:.3f} ms")
+        del got, want, key, idx, is_big, alive, tx0, tx1, ty0, ty1
+    return _sites(sites)
 
 
 def phase_prepass_odd_shapes(dev):
@@ -4689,8 +4774,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from fourdgs_torch.core.camera import Camera
-    from fourdgs_torch.ops import (composite_cuda, lookup_cuda, pack_cuda,
-                                   project_cuda, sort_cuda, tail_cuda)
+    from fourdgs_torch.ops import (composite_cuda, emit_cuda, lookup_cuda,
+                                   pack_cuda, project_cuda, sort_cuda,
+                                   tail_cuda)
     from fourdgs_torch.render import pipeline as TP
     from fourdgs_torch.render import tiles as TT
     from fourdgs_torch.render.autoconfig import auto_render_config
@@ -4717,13 +4803,15 @@ def main() -> int:
                "K13 merge_finish": sort_cuda.MERGE_FINISH,
                "K5 pack_rows": pack_cuda.PACK_ROWS,
                "K14 unpack_rows": pack_cuda.UNPACK_ROWS,
-               "K15 project4d": project_cuda.PROJECT4D}
+               "K15 project4d": project_cuda.PROJECT4D,
+               "K16 emit_pair_keys": emit_cuda.EMIT}
     # Launches per frame of each path; a kernel not named launches never.
     never = dict.fromkeys(kernels, 0)
     converged_frame = dict(never, **{
         "K1 composite": 1, "K2 rowsort_compact": 1, "K3 sample_blocks": 2,
         "K4 pack_record_fields": 1, "K5 pack_meta_rows": 1,
-        "K6 tail_prepass": 2, "K7 tail_accumulate": 2, "K15 project4d": 1})
+        "K6 tail_prepass": 2, "K7 tail_accumulate": 2, "K15 project4d": 1,
+        "K16 emit_pair_keys": 2})
 
     # (a) environment and builds.
     kind = torch.cuda.get_device_name(0)
@@ -4778,7 +4866,8 @@ def main() -> int:
     launches = {"non-converged": phase_full_frame(
         "(f)", params, camera, cfg, kernels,
         dict(never, **{"K1 composite": None, "K2 rowsort_compact": 1,
-                       "K3 sample_blocks": 1, "K15 project4d": 1}),
+                       "K3 sample_blocks": 1, "K15 project4d": 1,
+                       "K16 emit_pair_keys": 2}),
         TIMED_FRAMES)[0]}
 
     # (j) K8 at the inputs of one 10M non-converged grad step: pass 1 and
@@ -4849,6 +4938,10 @@ def main() -> int:
     # (i) K15, the packed projection, at that frame's inputs.
     results["converged"]["K15 project4d"] = phase_project("(i)", params,
                                                           camera)
+    torch.cuda.empty_cache()
+    # (i) K16, the binning's emission, at that frame's projection.
+    results["converged"]["K16 emit_pair_keys"] = phase_emit("(i)", params,
+                                                            camera, cfg)
     torch.cuda.empty_cache()
 
     # Training.
@@ -4968,6 +5061,9 @@ def main() -> int:
     path_4k = "converged 4K, two bands"
     results[path_4k] = merge_results(bands)
     del captured, cap, bands
+    torch.cuda.empty_cache()
+    results[path_4k]["K16 emit_pair_keys"] = phase_emit(
+        "(p)", params, camera_4k, cfg_4k)
     torch.cuda.empty_cache()
     # (p) the full 4K frame: launch counts twice phase (i)'s but K15's (one
     # projection serves both bands), the counters, time and peak memory,

@@ -13,7 +13,8 @@ splat emits a fixed budget of (tile, splat) pair slots. Two orderings:
   render/pipeline.py), each band with band-relative tile ids. With
   `pallas_sort` the compacted rows are stitched by the bitonic merge kernels
   (K11-K13) instead of one global sort, and a depth prune that is not fused
-  into the rowsort kernel runs as its own pass (K10).
+  into the rowsort kernel runs as its own pass (K10). On the card the keys
+  are emitted by one kernel launch a tier (K16, ops/emit_cuda).
 
 Either way the per-tile ranges (CSR offsets) come from a left bisect of the
 sorted pairs. A sharded render bins only its rank's window of tiles
@@ -30,6 +31,7 @@ import torch
 from torch.profiler import record_function
 
 from fourdgs_torch import resolve_device
+from fourdgs_torch.ops.emit_cuda import emit_big_pair_keys, emit_pair_keys
 from fourdgs_torch.ops.lookup_cuda import apply_cutkeys, sample_blocks
 from fourdgs_torch.ops.sort_cuda import (DEAD, merge_sorted_rows,
                                          rowsort_compact)
@@ -259,7 +261,88 @@ def quantized_pair_keys(proj: Projected, p00, p11, width: int, height: int,
     capacity, count into `overflowed`. With tile_row_band = (ty_base, ny),
     only tile rows [ty_base, ty_base + ny) are binned, with tile ids
     relative to the band; with tile_range = (lo, n_local) only pairs on the
-    tiles of that window are live (_emit_pair_slots)."""
+    tiles of that window are live (_emit_pair_slots).
+
+    CPU tensors take the plain version (quantized_pair_keys_plain); any
+    other device the kernel K16, one launch a tier (ops/emit_cuda:
+    emit_pair_keys, then emit_big_pair_keys on the ids big_tier_ids keeps),
+    which raises where the device is not a card. Both give the same keys,
+    splat indices, ids and count, in the same slot-major layout."""
+    if proj.mx.device.type == "cpu":
+        return quantized_pair_keys_plain(
+            proj, p00, p11, width, height, tile_h, tile_w,
+            max_tiles_per_splat, big_splat_budget, big_splat_keep_cols,
+            tile_row_band, tile_range)
+    ny, nx = tile_grid(width, height, tile_h, tile_w)
+    if tile_row_band is not None:
+        ny = tile_row_band[1]
+    two_tier = _check_emission(ny * nx, max_tiles_per_splat,
+                               big_splat_budget)
+    key, splat_idx, overflowed, is_big = emit_pair_keys(
+        proj, p00, p11, width, height, tile_h, tile_w, max_tiles_per_splat,
+        big_splat_budget, big_tier_slots(proj.count, big_splat_keep_cols),
+        tile_row_band, tile_range)
+    if not two_tier:
+        return key, splat_idx, overflowed, None
+    ids, big_dropped = big_tier_ids(is_big, big_splat_keep_cols)
+    overflowed = emit_big_pair_keys(
+        proj, p00, p11, width, height, tile_h, tile_w, big_splat_budget, ids,
+        key, splat_idx, big_dropped, tile_row_band, tile_range)
+    return key, splat_idx, overflowed, ids
+
+
+def _check_emission(num_tiles: int, max_tiles_per_splat: int,
+                    big_splat_budget: int) -> bool:
+    """Whether the emission has a big tier; raises ValueError where the key
+    cannot hold the tile ids or the big tier's budget is not above the main
+    tier's."""
+    if num_tiles >= TILE_LIMIT:
+        raise ValueError(
+            f"{num_tiles} tiles in one binning: the quantized key holds "
+            f"fewer than {TILE_LIMIT}; bin the image in tile-row bands "
+            "(tile_row_band, as render_projected does)")
+    two_tier = bool(big_splat_budget)
+    if two_tier and big_splat_budget <= max_tiles_per_splat:
+        raise ValueError("big_splat_budget must exceed max_tiles_per_splat")
+    return two_tier
+
+
+def big_tier_ids(is_big: torch.Tensor, keep_cols: int):
+    """The big tier's kept ids and the count of big splats past their
+    capacity, (ids, dropped): by hot-block extraction (compact_flag_ids)
+    where N is a multiple of 1024 of at least 128 * 1024, else by two
+    compactions of keep_cols and 4 * keep_cols a row. ids holds
+    big_tier_slots(N, keep_cols) int32 slots, DEAD where empty."""
+    n = is_big.shape[0]
+    if n % 1024 == 0 and n >= 128 * 1024:
+        return compact_flag_ids(is_big)
+    bk0 = torch.where(is_big, torch.arange(n, dtype=torch.int32,
+                                           device=is_big.device), DEAD)
+    ids, _, big_dropped = compact_pairs(bk0, bk0, DEAD, keep_cols)
+    ids, _, big_dropped2 = compact_pairs(ids, ids, DEAD, 4 * keep_cols)
+    return ids, big_dropped + big_dropped2
+
+
+def big_tier_slots(n: int, keep_cols: int) -> int:
+    """The length of big_tier_ids' ids for N splats: the rows of each
+    compaction (COMPACT_ROW_LEN slots a row, rounded up) times the slots it
+    keeps a row."""
+    def kept(slots, keep):
+        return -(-slots // COMPACT_ROW_LEN) * keep
+    if n % 1024 == 0 and n >= 128 * 1024:
+        return kept(min(n // 1024, 1024) * 1024, 24)
+    return kept(kept(n, keep_cols), 4 * keep_cols)
+
+
+def quantized_pair_keys_plain(proj: Projected, p00, p11, width: int,
+                              height: int, tile_h: int, tile_w: int,
+                              max_tiles_per_splat: int,
+                              big_splat_budget: int = 0,
+                              big_splat_keep_cols: int = 128,
+                              tile_row_band: Optional[Tuple[int, int]] = None,
+                              tile_range: Optional[Tuple[int, int]] = None):
+    """quantized_pair_keys in plain PyTorch, on any device: the same
+    arguments and result. K16 is held to it on the card."""
     ny, nx = tile_grid(width, height, tile_h, tile_w)
     alive, tx0, tx1, ty0, ty1 = splat_tile_bbox(proj, p00, p11, width,
                                                 height, tile_h, tile_w)
@@ -267,16 +350,9 @@ def quantized_pair_keys(proj: Projected, p00, p11, width: int, height: int,
         alive, ty0, ty1, ny = clip_to_tile_row_band(alive, ty0, ty1,
                                                     tile_row_band)
     num_tiles = ny * nx
-    if num_tiles >= TILE_LIMIT:
-        raise ValueError(
-            f"{num_tiles} tiles in one binning: the quantized key holds "
-            f"fewer than {TILE_LIMIT}; bin the image in tile-row bands "
-            "(tile_row_band, as render_projected does)")
-    two_tier = bool(big_splat_budget)
+    two_tier = _check_emission(num_tiles, max_tiles_per_splat,
+                               big_splat_budget)
     if two_tier:
-        if big_splat_budget <= max_tiles_per_splat:
-            raise ValueError("big_splat_budget must exceed "
-                             "max_tiles_per_splat")
         span = (tx1 - tx0 + 1) * (ty1 - ty0 + 1)
         is_big = alive & (span > max_tiles_per_splat)
         alive1 = alive & ~is_big
@@ -291,16 +367,7 @@ def quantized_pair_keys(proj: Projected, p00, p11, width: int, height: int,
         return key, splat_idx, overflowed, None
 
     n = alive.shape[0]
-    if n % 1024 == 0 and n >= 128 * 1024:
-        ids, big_dropped = compact_flag_ids(is_big)
-    else:
-        bk0 = torch.where(is_big, torch.arange(n, dtype=torch.int32,
-                                               device=alive.device), DEAD)
-        ids, _, big_dropped = compact_pairs(bk0, bk0, DEAD,
-                                            big_splat_keep_cols)
-        ids, _, big_dropped2 = compact_pairs(ids, ids, DEAD,
-                                             4 * big_splat_keep_cols)
-        big_dropped = big_dropped + big_dropped2
+    ids, big_dropped = big_tier_ids(is_big, big_splat_keep_cols)
     blive = ids != DEAD
     safe = torch.clamp(ids, max=n - 1).long()
     bfields = torch.stack([tx0, tx1, ty0, ty1, dbits, span])[:, safe]
