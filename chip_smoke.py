@@ -42,16 +42,13 @@ on the same card at each of those call sites. Phases:
       big-tier stream, and the main meta at a 1024-wide chunk, where the
       bands and slot masks are not trivial) and K7 (main and big-tier
       stream), each with the kernel and plain times; K3 and K6 (here, in
-      (b) and in (p)) also bit-equal to their earlier forms
-      (`fourdgs_torch/tools/csrc/sample_blocks_word.cu`,
-      `tail_prepass_block_chunk.cu`) and timed beside them in turns, K3
-      also alone (launches replayed from a CUDA graph) and alone with the
-      L2 flushed before each launch, beside an empty kernel launched the
-      same ways; K6 at PREPASS_ODD_SHAPES (chunks 50-16384, budget_lo > 0,
-      an all-dead chunk, chunk 100 at Np = 200, metas 1-3 words off 16
-      bytes) and on the C-R8 wrap, K3 on views 1-3
-      words off, both bit-equal to plain and the earlier form; then K7 and K9 where
-      the frame's own sites do not reach: the main stream under 32 and 64
+      (b) and in (p)) also alone (launches replayed from a CUDA graph), K3
+      also alone with the L2 flushed before each launch, beside an empty
+      launch timed the same ways; K6 at PREPASS_ODD_SHAPES (chunks
+      50-16384, budget_lo > 0, an all-dead chunk, chunk 100 at Np = 200,
+      metas 1-3 words off 16 bytes) and on the C-R8 wrap, K3 on views 1-3
+      words off, both bit-equal to plain; then K7 and K9 where the frame's
+      own sites do not reach: the main stream under 32 and 64
       samples a tile (tail blocks 8x8 and 4x8: the kernels' second unrolled
       instance and their run-time loops) and the big-tier stream re-chunked
       to a chunk of 200 (ragged units), K9 under a random cotangent;
@@ -97,19 +94,19 @@ on the same card at each of those call sites. Phases:
   (m) K10 apply_cutkeys and K11-K13 (merge tree, every cross pass, every
       finishing pass) against their plain versions at the inputs one such
       10M frame gives them, keys exact and (key, value) multisets equal;
-      K11 and every K13 also bit-equal (keys and values) to their earlier
-      shared-memory form (`fourdgs_torch/tools/csrc/merge_shared_stages.cu`),
-      timed beside it; every multi-stage pass of K12 exactly equal to its
-      single stages and each single stage (the kernel with one stage) to
-      plain; the whole `merge_sorted_rows`, its launches after K11
-      enqueued by one host call, against `torch.sort` (keys, multisets,
+      K11 and every K13 also launched twice and bit-equal, keys and values
+      (against plain the values are held as multisets: the sorts are
+      unstable); every multi-stage pass of K12 exactly equal to its single
+      stages and each single stage (the kernel with one stage) to plain;
+      the whole `merge_sorted_rows`, its launches after K11 enqueued by
+      one host call, against `torch.sort` (keys, multisets,
       sortedness, live count) in both row-direction forms, timed beside
       `torch.sort` + gather; the compacting row sort timed on its own;
       then adversarial inputs made on the card, in both row forms (all
       keys equal, all DEAD, presorted, rows of 256 and of 16,384, an array
       of one block, whose final run is ascending): K11 and every K13
-      bit-equal to the earlier form, the merge's keys equal to
-      `torch.sort`'s and its (key, value) multiset equal;
+      launched twice and bit-equal, K11's keys equal to plain, the merge's
+      keys equal to `torch.sort`'s and its (key, value) multiset equal;
   (n) the 20K-splat converged frame under the merge kernels, card against
       CPU, and on the card against the default sort backend: integer
       binning outputs and per-tile pair multisets equal, the image within
@@ -126,12 +123,10 @@ on the same card at each of those call sites. Phases:
   the public row pack:
   (q) `pack_rows` of ten float32 rows of 10,010,624 against `torch.stack`,
       exact; its backward launches K14 once and returns the cotangent's
-      rows exactly; both bit-equal to their earlier form (one thread per
-      column, `fourdgs_torch/tools/csrc/pack_rows_scalar.cu`) there and,
-      with their plain versions, at PACK_ODD_SHAPES (R 1 to 16, n = 0,
-      n % 4 != 0, n = pad_to, pad_to % 4 != 0, views 1-3 words off 16 bytes,
-      int32); both timed beside the earlier form and the PyTorch call, in
-      three turns of alternating order (medians);
+      rows exactly; both bit-equal to their plain versions at
+      PACK_ODD_SHAPES (R 1 to 16, n = 0, n % 4 != 0, n = pad_to, pad_to %
+      4 != 0, views 1-3 words off 16 bytes, int32); both timed beside the
+      PyTorch call, in three turns of alternating order (medians);
   the exact-order paths (`render_splats4d`, `render_splats3d`,
   `render_splats2d`: the splats in front-to-back order, the pairs sorted by
   (tile, splat index)), under EXACT_CFGS: the default config (xla backend,
@@ -417,6 +412,50 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(launch, reps=200, replays=5):
+    """Device ms a launch: `reps` launches captured in one CUDA graph, the
+    graph replayed `replays` times between two events."""
+    import torch
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+FLUSH_BYTES = 512 << 20          # ten times the H100's 50 MB L2, and long
+#                                  enough that the host stays ahead of it
+
+
+def cold_ms(launch, flush, reps=50):
+    """Mean ms of one launch between its own two events, each after a write
+    of `flush` (larger than the L2) has evicted what the last launch read."""
+    import torch
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for _ in range(2):
+        flush.zero_()
+        launch()
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        launch()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.mean(s.elapsed_time(e) for s, e in events)
+
+
 def turns_ms(fns, reps, rounds=3):
     """Median milliseconds a call of each of `fns` (name -> callable), timed
     with cuda_ms in `rounds` turns whose order alternates, so that no
@@ -501,6 +540,16 @@ def nbytes(*tensors):
                if hasattr(t, "element_size"))
 
 
+def prepass_bytes(meta, budget_lo, budget):
+    """Bytes K6 must read of a meta matrix: the span row, and the 32-byte
+    sectors (8 entries) of the other five rows that hold an entry in the
+    span window (budget_lo, budget]."""
+    span = meta[5]
+    live = ((span > budget_lo) & (span <= budget)).nonzero().squeeze(1)
+    sectors = (live // 8).unique_consecutive().numel()
+    return span.numel() * 4 + 5 * 32 * sectors
+
+
 def site(label, err, ms, plain_ms, moved, ops, library_ms=None):
     """One call site of a kernel: its error against plain, the times, and
     its bound, the larger of `moved` bytes (every input read once, every
@@ -514,12 +563,10 @@ def site(label, err, ms, plain_ms, moved, ops, library_ms=None):
 
 
 # Times a site may carry beside `ms`, summed over a path's sites where every
-# site has them: the earlier form's time (a redesigned kernel), and for K3 and
-# K6 the kernel alone (`device_ms`, launches replayed from a CUDA graph), for
-# K3 also alone with the L2 flushed before each launch (`cold_ms`), each also
-# for the earlier form.
-EXTRA_MS = ("earlier_ms", "device_ms", "cold_ms", "earlier_device_ms",
-            "earlier_cold_ms")
+# site has them: for K3 and K6 the kernel alone (`device_ms`, launches
+# replayed from a CUDA graph), for K3 also alone with the L2 flushed before
+# each launch (`cold_ms`).
+EXTRA_MS = ("device_ms", "cold_ms")
 
 
 def _sites(sites):
@@ -551,52 +598,40 @@ def merge_results(parts):
 
 def phase_sample_blocks(tag, calls, n_sites):
     """K3 at each of the path's `n_sites` call sites, in call order: bit-equal
-    to plain and to its earlier form (`tools/csrc/sample_blocks_word.cu`),
-    timed beside it through the wrapper (back to back, in turns), alone
-    (launches replayed from a CUDA graph) and alone with the L2 flushed
-    before each launch, beside an empty kernel launched the same ways."""
+    to plain, timed through the wrapper, alone (launches replayed from a
+    CUDA graph) and alone with the L2 flushed before each launch, beside an
+    empty launch (PyTorch's spin kernel for 0 cycles, one thread) timed the
+    same ways."""
     import torch
     from fourdgs_torch.ops import lookup_cuda as L
-    from fourdgs_torch.tools import prepass_split as PS
     check(len(calls) == n_sites, f"{tag} K3: {len(calls)} calls in one "
           f"frame, want {n_sites}")
-    word, _, empty = PS.word_kernels()
-    flush = torch.empty(PS.FLUSH_BYTES // 4, dtype=torch.int32,
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
                         device=calls[0][0][0][0].device)
     def stream():      # at launch: a graph captures on a stream of its own
         return torch.cuda.current_stream().cuda_stream
-    floor_device = PS.graph_ms(lambda: empty(1, 32, 1, stream=stream()))
-    floor_cold = PS.cold_ms(lambda: empty(1, 32, 1, stream=stream()), flush)
+    floor_device = graph_ms(lambda: torch.cuda._sleep(0))
+    floor_cold = cold_ms(lambda: torch.cuda._sleep(0), flush)
     sites, lines = [], []
     for (arrs,), kw in calls:
         key = arrs[0]
         stride, take = kw["stride_rows"], kw["take_rows"]
         got, = L.sample_blocks([key], stride_rows=stride, take_rows=take)
         want = L.sample_blocks_plain(key, stride, take)
-        earlier = PS.earlier_sample_blocks(word, key, stride, take)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"{tag} K3 sample_blocks (stride "
               f"{stride}, take {take}) differs from plain")
-        check(torch.equal(got, earlier), f"{tag} K3 sample_blocks (stride "
-              f"{stride}, take {take}) differs from its earlier form")
-        ms, earlier_ms = turns_ms({
-            "kernel": lambda: L.sample_blocks([key], stride, take),
-            "earlier": lambda: PS.earlier_sample_blocks(word, key, stride,
-                                                        take)}, 50).values()
+        ms, = turns_ms({"kernel": lambda: L.sample_blocks([key], stride,
+                                                          take)}, 50).values()
         plain_ms = cuda_ms(lambda: L.sample_blocks_plain(key, stride, take),
                            reps=50)
-        # The kernels alone, on a preallocated output.
+        # The kernel alone, on a preallocated output.
         nblocks = L.num_sample_blocks(key.shape[0], stride)
         out = torch.empty_like(want)
-        alone = {
-            "": lambda: L.SAMPLE_BLOCKS(key, out, nblocks, stride, take,
-                                        stream=stream()),
-            "earlier_": lambda: PS.earlier_sample_blocks(word, key, stride,
-                                                         take, out)}
-        extra = dict(earlier_ms=earlier_ms)
-        for pre, fn in alone.items():
-            extra[f"{pre}device_ms"] = PS.graph_ms(fn)
-            extra[f"{pre}cold_ms"] = PS.cold_ms(fn, flush)
+
+        def alone():
+            L.SAMPLE_BLOCKS(key, out, nblocks, stride, take, stream=stream())
+        extra = dict(device_ms=graph_ms(alone), cold_ms=cold_ms(alone, flush))
         label = (f"{key.shape[0]:,} int32 keys, stride {stride}, take "
                  f"{take} -> {got.shape[0]:,} samples")
         # The function reads only the sampled words.
@@ -604,26 +639,21 @@ def phase_sample_blocks(tag, calls, n_sites):
                           **extra, empty_device_ms=floor_device,
                           empty_cold_ms=floor_cold))
         lines.append(
-            f"{label}: exact match, bit-equal to the earlier form; through "
-            f"the wrapper {ms:.4f} ms (earlier form {earlier_ms:.4f}), the "
-            f"kernel alone {extra['device_ms']:.4f} ms (earlier "
-            f"{extra['earlier_device_ms']:.4f}), alone with the L2 flushed "
-            f"{extra['cold_ms']:.4f} ms (earlier "
-            f"{extra['earlier_cold_ms']:.4f}); plain {plain_ms:.4f} ms")
+            f"{label}: exact match; through the wrapper {ms:.4f} ms, the "
+            f"kernel alone {extra['device_ms']:.4f} ms, alone with the L2 "
+            f"flushed {extra['cold_ms']:.4f} ms; plain {plain_ms:.4f} ms")
     del flush
     print(f"{tag} K3 sample_blocks: " + "; ".join(lines) + f"; an empty "
-          f"kernel alone {floor_device:.4f} ms, after a flush "
+          f"launch alone {floor_device:.4f} ms, after a flush "
           f"{floor_cold:.4f} ms")
     return _sites(sites)
 
 
 def phase_sample_offsets(dev):
     """(g): K3 on views 1-3 words off 16 bytes (the scalar path) and at an
-    aligned base, bit-equal to plain and to its earlier form."""
+    aligned base, bit-equal to plain."""
     import torch
     from fourdgs_torch.ops import lookup_cuda as L
-    from fourdgs_torch.tools import prepass_split as PS
-    word = PS.word_kernels()[0]
     gen = torch.Generator(device=dev).manual_seed(10)
     shapes = ((1 << 22, 134, 2, 1), (1 << 22, 64, 1, 2), (1 << 20, 7, 8, 3),
               (1024, 1, 8, 1), (1 << 20, 9, 3, 0))
@@ -633,14 +663,13 @@ def phase_sample_offsets(dev):
         x = buf[offset:]
         got, = L.sample_blocks([x], stride, take)
         want = L.sample_blocks_plain(x, stride, take)
-        earlier = PS.earlier_sample_blocks(word, x, stride, take)
         torch.cuda.synchronize()
-        check(torch.equal(got, want) and torch.equal(got, earlier),
+        check(torch.equal(got, want),
               f"(g) K3 at n {n:,}, stride {stride}, take {take}, offset "
-              f"{offset}: differs from plain or its earlier form")
+              f"{offset}: differs from plain")
     print(f"(g) K3 sample_blocks at {len(shapes)} odd shapes (views 1-3 "
           f"words off 16 bytes, take 1-8, one sample block): bit-equal to "
-          f"plain and to the earlier form")
+          f"plain")
 
 
 def _k2_exact(tag, key, val, keep, row_len, cut, shift):
@@ -1225,10 +1254,7 @@ def phase_converged_kernels(captured, tag="(g)"):
     # K6: the main and the big-tier stream, then the main meta at a chunk
     # of 1024 (two sub-blocks, no int32 wrap of the depth sum), where the
     # bands and the slot masks must come out non-trivial; bit-equal to
-    # plain and to the earlier form (one block a chunk,
-    # `tools/csrc/tail_prepass_block_chunk.cu`), timed beside it.
-    from fourdgs_torch.tools import prepass_split as PS
-    earlier_k6 = PS.block_chunk_kernel()
+    # plain.
     calls = captured["tail_cuda.tail_prepass"]
     check(len(calls) == 2,
           f"{tag} K6: {len(calls)} calls in one frame, want 2")
@@ -1245,17 +1271,11 @@ def phase_converged_kernels(captured, tag="(g)"):
                                              budget)
             return band, rect, TL.step_slot_masks(meta, chunk, budget,
                                                   budget_lo)
-        def k6_earlier():
-            return PS.earlier_tail_prepass(earlier_k6, *args, **kw)
-        got, want, earlier = (TL.tail_prepass(*args, **kw), k6_plain(),
-                              k6_earlier())
+        got, want = TL.tail_prepass(*args, **kw), k6_plain()
         torch.cuda.synchronize()
-        for g, w, e, what in zip(got, want, earlier,
-                                 ("band", "rect", "slot mask")):
+        for g, w, what in zip(got, want, ("band", "rect", "slot mask")):
             check(torch.equal(g, w), f"{tag} K6 {label}: {what} differs from "
                   f"plain")
-            check(torch.equal(g, e), f"{tag} K6 {label}: {what} differs from "
-                  f"the earlier form")
         band, rect, mask = got
         bands = torch.bincount(band, minlength=kw["k_bands"]).tolist()
         n_mask = int((mask != 0).sum())
@@ -1263,36 +1283,29 @@ def phase_converged_kernels(captured, tag="(g)"):
             check(sum(b > 0 for b in bands) > 1 and n_mask > 0,
                   f"{tag} K6 {label}: trivial output, chunks per band {bands}, "
                   f"{n_mask} non-zero slot masks")
-        ms, earlier_ms = turns_ms({
-            "kernel": lambda: TL.tail_prepass(*args, **kw),
-            "earlier": k6_earlier}, 20).values()
+        ms, = turns_ms({"kernel": lambda: TL.tail_prepass(*args, **kw)},
+                       20).values()
         plain_ms = cuda_ms(k6_plain, 5)
-        # Both kernels alone, from a CUDA graph: the device's time.
+        # The kernel alone, from a CUDA graph: the device's time.
         steps, k_bands = meta.shape[1] // chunk, kw["k_bands"]
         rows = torch.empty((steps, 6), dtype=torch.int32, device=meta.device)
         cuts32 = cuts.to(torch.int32).contiguous()
-        device_ms = PS.graph_ms(lambda: TL.TAIL_PREPASS(
+        device_ms = graph_ms(lambda: TL.TAIL_PREPASS(
             meta, cuts32, rows, meta.shape[1], chunk, budget, budget_lo,
             k_bands - 1, steps,
             stream=torch.cuda.current_stream().cuda_stream), reps=20)
-        earlier_device_ms = PS.graph_ms(lambda: PS.earlier_tail_prepass(
-            earlier_k6, meta, cuts32, chunk, budget, budget_lo, k_bands, rows),
-            reps=20)
         where = (f"{label}: {meta.shape[1] // chunk:,} chunks of {chunk}, "
                  f"budget ({budget_lo}, {budget}]")
         if not label.startswith("main at"):
             sites.append(dict(site(where, 0.0, ms, plain_ms,
-                                   PS.prepass_bytes(meta, budget_lo, budget)
+                                   prepass_bytes(meta, budget_lo, budget)
                                    + nbytes(cuts, *got), 0),
-                              earlier_ms=earlier_ms, device_ms=device_ms,
-                              earlier_device_ms=earlier_device_ms))
-        lines.append(f"{where}: exact, bit-equal to the earlier form, chunks "
-                     f"per band {bands}, {n_mask:,} non-zero slot masks, "
-                     f"window passes per chunk max "
+                              device_ms=device_ms))
+        lines.append(f"{where}: exact, chunks per band {bands}, {n_mask:,} "
+                     f"non-zero slot masks, window passes per chunk max "
                      f"{int((rect[:, 2] * rect[:, 3]).max())}; kernel "
-                     f"{ms:.4f} ms (earlier form {earlier_ms:.4f}), alone "
-                     f"{device_ms:.4f} ms (earlier {earlier_device_ms:.4f}), "
-                     f"plain {plain_ms:.4f} ms")
+                     f"{ms:.4f} ms, alone {device_ms:.4f} ms, plain "
+                     f"{plain_ms:.4f} ms")
     results["K6 tail_prepass"] = _sites(sites)
     print(f"{tag} K6 tail_prepass: " + "; ".join(lines))
 
@@ -1493,11 +1506,9 @@ def phase_emit(tag, params, camera, cfg):
 def phase_prepass_odd_shapes(dev):
     """(g): K6 at PREPASS_ODD_SHAPES, each with an all-dead chunk, and on
     the C-R8 wrap (one chunk of 16384 all live at dbits 250000, which wraps
-    the int32 depth sum), bit-equal to plain and to its earlier form."""
+    the int32 depth sum), bit-equal to plain."""
     import torch
     from fourdgs_torch.ops import tail_cuda as TL
-    from fourdgs_torch.tools import prepass_split as PS
-    earlier_k6 = PS.block_chunk_kernel()
     gen = torch.Generator(device=dev).manual_seed(11)
 
     def meta_at(chunk, steps, offset):
@@ -1529,13 +1540,9 @@ def phase_prepass_odd_shapes(dev):
         got = TL.tail_prepass(meta, cuts, chunk, budget, lo)
         band, rect = TL.step_bands_rects(meta, chunk, cuts, lo, budget)
         want = (band, rect, TL.step_slot_masks(meta, chunk, budget, lo))
-        earlier = PS.earlier_tail_prepass(earlier_k6, meta, cuts, chunk,
-                                          budget, lo)
         torch.cuda.synchronize()
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
               f"(g) K6 {what}: differs from plain")
-        check(all(torch.equal(g, e) for g, e in zip(got, earlier)),
-              f"(g) K6 {what}: differs from its earlier form")
         if what.startswith("C-R8"):
             check(int(got[0][0]) == 7, "(g) K6 C-R8: band is not the "
                   "reference's 7")
@@ -1545,7 +1552,7 @@ def phase_prepass_odd_shapes(dev):
     print(f"(g) K6 tail_prepass at {len(cases)} odd shapes (chunks 50-16384, "
           f"budget_lo > 0, an all-dead chunk each, chunk 100 at Np = 200, "
           f"chunk 50 and metas 1-3 words off on the scalar path, the C-R8 "
-          f"wrap): bit-equal to plain and to the earlier form")
+          f"wrap): bit-equal to plain")
 
 
 def phase_tail_variants(tag, captured, camera, cfg):
@@ -2035,9 +2042,7 @@ def phase_sort_kernels(captured):
     from fourdgs_torch.ops import sort_checks as SC
     from fourdgs_torch.ops import sort_cuda as S
     from fourdgs_torch.render import tiles as TT
-    from fourdgs_torch.tools import sort_split as SS
 
-    e_tree, e_finish = SS.shared_stage_kernels()
     results = {}
     # K10: the standalone cut.
     check(len(captured["tiles.apply_cutkeys"]) == 1, "(m) K10: not one call")
@@ -2132,24 +2137,22 @@ def phase_sort_kernels(captured):
     check(torch.equal(gk, pk), "(m) K11 merge_tree: keys differ from plain")
     check(_same_pairs(gk, gv, pk, pv, run=block), "(m) K11 merge_tree: a "
           "block's (key, value) multiset differs from plain")
-    ek, ev = SS.earlier_merge_tree(e_tree, *t_args)
+    ak, av = S.merge_tree(*t_args)
     torch.cuda.synchronize()
-    check(torch.equal(gk, ek) and torch.equal(gv, ev), "(m) K11 merge_tree "
-          "differs from its earlier form")
+    check(torch.equal(gk, ak) and torch.equal(gv, av), "(m) K11 merge_tree: "
+          "two launches differ")
     ms = cuda_ms(lambda: S.merge_tree(*t_args), 20)
-    earlier_ms = cuda_ms(lambda: SS.earlier_merge_tree(e_tree, *t_args), 20)
     plain_ms = cuda_ms(lambda: S.merge_tree_plain(*t_args), 5)
     levels = range(c.bit_length(), block.bit_length())    # log2(run_out)
     label = f"{n:,} pairs, rows of {c} -> runs of {block:,}"
-    k11 = results["K11 merge_tree"] = _sites([dict(site(
+    results["K11 merge_tree"] = _sites([site(
         label, 0.0, ms, plain_ms, 2 * nbytes(t_key, t_val),
-        n // 2 * sum(levels) * CMPX_OPS), earlier_ms=earlier_ms)])
-    k11["earlier_ms"] = earlier_ms
+        n // 2 * sum(levels) * CMPX_OPS)])
     print(f"(m) K11 merge_tree: {label} ({sum(levels)} stages in register "
-          f"rounds), keys exact, blocks' multisets equal, bit-equal to the "
-          f"earlier form; kernel {ms:.4f} ms (earlier form {earlier_ms:.4f} "
-          f"ms), plain {plain_ms:.4f} ms")
-    del gk, gv, pk, pv
+          f"rounds), keys exact, blocks' multisets equal, two launches "
+          f"bit-equal (keys and values); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
+    del gk, gv, pk, pv, ak, av
 
     # K12 and K13 at every launch of the schedule, walked from what the
     # frame handed merge_levels (K11's output). A pass of K12 is held
@@ -2201,23 +2204,17 @@ def phase_sort_kernels(captured):
             check(_same_pairs(gk, gv, pk, pv, run=block), f"(m) K13 "
                   f"merge_finish (run {run_out}): a block's multiset differs "
                   f"from plain")
-            ek, ev = SS.earlier_merge_finish(e_finish, key.clone(),
-                                             val.clone(), run_out, block)
+            ak, av = S.merge_finish(key.clone(), val.clone(), run_out, block)
             torch.cuda.synchronize()
-            check(torch.equal(gk, ek) and torch.equal(gv, ev), f"(m) K13 "
-                  f"merge_finish (run {run_out}) differs from its earlier "
-                  f"form")
+            check(torch.equal(gk, ak) and torch.equal(gv, av), f"(m) K13 "
+                  f"merge_finish (run {run_out}): two launches differ")
             args = (key, val, run_out, block)
             ms = _net_ms(S.merge_finish, args, 10)
-            earlier_ms = _net_ms(
-                lambda k, v, r, b: SS.earlier_merge_finish(e_finish, k, v, r,
-                                                           b), args, 10)
             plain_ms = cuda_ms(lambda: S.merge_finish_plain(
                 key, val, block, run_out), 3)
-            k13_sites.append(dict(site(
+            k13_sites.append(site(
                 f"run {run_out:,}", 0.0, ms, plain_ms, 2 * nbytes(key, val),
-                n // 2 * (block.bit_length() - 1) * CMPX_OPS),
-                earlier_ms=earlier_ms))
+                n // 2 * (block.bit_length() - 1) * CMPX_OPS))
             key, val = gk, gv
     check(bool(SC.is_sorted(key)[0]), "(m) the walked schedule did not sort")
     k12 = results["K12 merge_cross_stage"] = _sites(k12_sites)
@@ -2245,14 +2242,12 @@ def phase_sort_kernels(captured):
           f"read and one write of the arrays from device memory; they stay "
           f"in L2 between the passes)")
     k13 = results["K13 merge_finish"] = _sites(k13_sites)
-    k13["earlier_ms"] = sum(x["earlier_ms"] for x in k13_sites)
     print(f"(m) K13 merge_finish: {len(k13_sites)} calls "
           f"({block.bit_length() - 1} stages in register rounds each), keys "
-          f"exact, blocks' multisets equal, each bit-equal to the earlier "
-          f"form; {', '.join(format(x['ms'], '.4f') for x in k13_sites)} ms, "
-          f"all {k13['ms']:.4f} ms (earlier form "
-          f"{', '.join(format(x['earlier_ms'], '.4f') for x in k13_sites)}, "
-          f"all {k13['earlier_ms']:.4f} ms), plain {k13['plain_ms']:.4f} ms")
+          f"exact, blocks' multisets equal, each launched twice bit-equal "
+          f"(keys and values); "
+          f"{', '.join(format(x['ms'], '.4f') for x in k13_sites)} ms, "
+          f"all {k13['ms']:.4f} ms, plain {k13['plain_ms']:.4f} ms")
     # The launches after K11 as the path enqueues them: one host call.
     levels_ms = _net_ms(S.merge_levels, (key, val, block), 10)
     print(f"(m) merge_levels: the {len(steps)} launches after K11 enqueued "
@@ -2293,13 +2288,12 @@ def _rows_of(kind, r, c, gen):
 
 def phase_merge_adversarial(dev):
     """(m) K11 and every K13 on adversarial inputs made on the card, in both
-    row forms: bit-equal (keys and values) to the earlier form, and the
-    whole merge's keys equal to torch.sort's, its multiset equal."""
+    row forms: each launched twice and bit-equal (keys and values), K11's
+    keys equal to plain, and the whole merge's keys equal to torch.sort's,
+    its multiset equal."""
     import torch
     from fourdgs_torch.ops import sort_cuda as S
-    from fourdgs_torch.tools import sort_split as SS
 
-    e_tree, e_finish = SS.shared_stage_kernels()
     gen = torch.Generator(device=dev).manual_seed(11)
     block = S.MERGE_BLOCK
     cases = (("all keys equal", 512, 512), ("all DEAD", 512, 512),
@@ -2318,10 +2312,10 @@ def phase_merge_adversarial(dev):
             blk = min(block, n)
             what = f"(m) {kind}, rows_alternating={alt}"
             gk, gv = S.merge_tree(fk, fv, c, blk, alt)
-            ek, ev = SS.earlier_merge_tree(e_tree, fk, fv, c, blk, alt)
+            ak, av = S.merge_tree(fk, fv, c, blk, alt)
             torch.cuda.synchronize()
-            check(torch.equal(gk, ek) and torch.equal(gv, ev),
-                  f"{what}: K11 differs from its earlier form")
+            check(torch.equal(gk, ak) and torch.equal(gv, av),
+                  f"{what}: K11's two launches differ")
             check(torch.equal(gk, S.merge_tree_plain(fk, fv, c, blk,
                                                      alt)[0]),
                   f"{what}: K11 keys differ from plain")
@@ -2340,20 +2334,18 @@ def phase_merge_adversarial(dev):
                     k, v = S.merge_finish(k, v, st[1], blk)
             for hk, hv, run_out, fb in finishes:
                 a = S.merge_finish(hk.clone(), hv.clone(), run_out, fb)
-                b = SS.earlier_merge_finish(e_finish, hk.clone(), hv.clone(),
-                                            run_out, fb)
+                b = S.merge_finish(hk.clone(), hv.clone(), run_out, fb)
                 torch.cuda.synchronize()
                 check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
-                      f"{what}: K13 (run {run_out}) differs from its "
-                      f"earlier form")
+                      f"{what}: K13 (run {run_out})'s two launches differ")
                 n_finish += 1
             check(torch.equal(k, torch.sort(fk).values),
                   f"{what}: keys differ from torch.sort")
             check(_same_pairs(k, v, fk, fv), f"{what}: (key, value) "
                   f"multisets differ")
     print(f"(m) adversarial inputs ({', '.join(c[0] for c in cases)}; both "
-          f"row forms): K11 and {n_finish} K13 launches bit-equal to the "
-          f"earlier form, keys equal torch.sort's, multisets equal")
+          f"row forms): K11 and {n_finish} K13 calls each launched twice "
+          f"bit-equal, keys equal torch.sort's, multisets equal")
 
 
 def phase_sorted_small_frame(dev, default):
@@ -2424,12 +2416,11 @@ def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
-def _pack_odd_shapes(dev, e_pack, e_unpack):
+def _pack_odd_shapes(dev):
     """(q): K5's general form and K14 at PACK_ODD_SHAPES, bit-equal to their
-    plain versions and to their earlier form."""
+    plain versions."""
     import torch
     from fourdgs_torch.ops import pack_cuda as PK
-    from fourdgs_torch.tools import pack_split as PS
     gen = torch.Generator(device=dev).manual_seed(9)
     for r, n, pad_to, offset, dtype in PACK_ODD_SHAPES:
         def words(size):
@@ -2445,35 +2436,28 @@ def _pack_odd_shapes(dev, e_pack, e_unpack):
         what = f"(q) R {r}, n {n:,}, pad_to {pad_to:,}, offset {offset}, {dtype}"
         got = PK.pack_rows(rows, pad_to)
         want = PK.pack_rows_plain(rows, pad_to)
-        earlier = PS.earlier_pack_rows(e_pack, rows, pad_to)
         back = PK.unpack_rows(cot, n)
         back_plain = PK.unpack_rows_plain(cot, n)
-        back_earlier = PS.earlier_unpack_rows(e_unpack, cot, n)
         torch.cuda.synchronize()
         check(torch.equal(_bits(got), _bits(want)),
               f"{what}: K5 pack_rows differs from plain")
-        check(torch.equal(_bits(got), _bits(earlier)),
-              f"{what}: K5 pack_rows differs from its earlier form")
-        check(all(torch.equal(_bits(g), _bits(w)) and torch.equal(
-            _bits(g), _bits(e)) for g, w, e in zip(back, back_plain,
-                                                   back_earlier)),
-              f"{what}: K14 unpack_rows differs from plain or its earlier "
-              f"form")
+        check(all(torch.equal(_bits(g), _bits(w))
+                  for g, w in zip(back, back_plain)),
+              f"{what}: K14 unpack_rows differs from plain")
     print(f"(q) pack_rows and unpack_rows at {len(PACK_ODD_SHAPES)} odd "
           f"shapes (R 1-16, n = 0, n % 4 != 0, n = pad_to, pad_to % 4 != 0, "
           f"pad_to % 1024 == 0, views 1-3 words off, int32 and float32): "
-          f"bit-equal to plain and to the earlier form")
+          f"bit-equal to plain")
 
 
 def phase_pack_rows(dev, kernels):
     """(q): pack_rows of ten float32 rows of the converged scene's length
     against torch.stack, and its backward (K14) against the cotangent's
-    rows; both bit-equal to their earlier form there and at the odd shapes,
-    and timed beside it. Returns (results, launches)."""
+    rows, both also bit-equal to plain at the odd shapes, each timed beside
+    the PyTorch call. Returns (results, launches)."""
     import torch
     from fourdgs_torch.ops import pack_cuda as PK
     from fourdgs_torch.scenes.cube import CONVERGED_PAD
-    from fourdgs_torch.tools import pack_split as PS
 
     n = -(-N_FULL // CONVERGED_PAD) * CONVERGED_PAD
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -2493,54 +2477,39 @@ def phase_pack_rows(dev, kernels):
           "(q) pack_rows differs from torch.stack")
     check(all(torch.equal(r.grad, cot[i]) for i, r in enumerate(rows)),
           "(q) a row's gradient differs from its row of the cotangent")
-    e_pack, e_unpack = PS.scalar_kernels()
-    earlier = PS.earlier_pack_rows(e_pack, detached, n)
-    torch.cuda.synchronize()
-    check(torch.equal(_bits(out.detach()), _bits(earlier)),
-          "(q) pack_rows differs from its earlier form")
     # A padded call, against the plain version.
     short = [r[:n - 1000] for r in detached[:3]]
     check(torch.equal(PK.pack_rows(short, n), PK.pack_rows_plain(short, n)),
           "(q) padded pack_rows differs from plain")
-    _pack_odd_shapes(dev, e_pack, e_unpack)
+    _pack_odd_shapes(dev)
     results = {}
-    ms, earlier_ms, lib_ms = turns_ms({
+    ms, lib_ms = turns_ms({
         "kernel": lambda: PK.pack_rows(detached, n),
-        "earlier": lambda: PS.earlier_pack_rows(e_pack, detached, n),
         "library": lambda: torch.stack(detached)}, 50).values()
     plain_ms = cuda_ms(lambda: PK.pack_rows_plain(detached, n), 5)
     label = f"10 x {n:,} float32"
-    results["K5 pack_rows"] = _sites([dict(site(
-        label, 0.0, ms, plain_ms, 2 * nbytes(cot), 0, lib_ms),
-        earlier_ms=earlier_ms)])
-    line = (f"(q) pack_rows {label}: forward exact against torch.stack and "
-            f"bit-equal to the earlier form; kernel {ms:.4f} ms (earlier "
-            f"form {earlier_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-            f"torch.stack {lib_ms:.4f} ms")
+    results["K5 pack_rows"] = _sites([site(
+        label, 0.0, ms, plain_ms, 2 * nbytes(cot), 0, lib_ms)])
+    line = (f"(q) pack_rows {label}: forward exact against torch.stack; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.stack "
+            f"{lib_ms:.4f} ms")
     got = PK.unpack_rows(cot, n)
     want = PK.unpack_rows_plain(cot, n)
-    back_earlier = PS.earlier_unpack_rows(e_unpack, cot, n)
     torch.cuda.synchronize()
     check(all(torch.equal(g, w) for g, w in zip(got, want)),
           "(q) K14 unpack_rows differs from plain")
-    check(all(torch.equal(_bits(g), _bits(e))
-              for g, e in zip(got, back_earlier)),
-          "(q) K14 unpack_rows differs from its earlier form")
-    ms, earlier_ms, lib_ms = turns_ms({
+    ms, lib_ms = turns_ms({
         "kernel": lambda: PK.unpack_rows(cot, n),
-        "earlier": lambda: PS.earlier_unpack_rows(e_unpack, cot, n),
         "library": lambda: cot[:, :n].clone()}, 50).values()
     # The plain version returns views; its copy is what moves the bytes.
     plain_ms = cuda_ms(lambda: [w.clone() for w in
                                 PK.unpack_rows_plain(cot, n)], 5)
-    results["K14 unpack_rows"] = _sites([dict(site(
-        label, 0.0, ms, plain_ms, 2 * nbytes(cot), 0, lib_ms),
-        earlier_ms=earlier_ms)])
+    results["K14 unpack_rows"] = _sites([site(
+        label, 0.0, ms, plain_ms, 2 * nbytes(cot), 0, lib_ms)])
     print(f"{line}; backward launches K14 once, gradients equal the "
-          f"cotangent's rows, bit-equal to the earlier form; K14 {ms:.4f} ms "
-          f"(earlier form {earlier_ms:.4f} ms), plain (a copy of each row "
-          f"view) {plain_ms:.4f} ms, one copy of the (10, n) cotangent "
-          f"{lib_ms:.4f} ms")
+          f"cotangent's rows, equal to plain; K14 {ms:.4f} ms, plain (a copy "
+          f"of each row view) {plain_ms:.4f} ms, one copy of the (10, n) "
+          f"cotangent {lib_ms:.4f} ms")
     return results, launches
 
 
@@ -4820,12 +4789,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     t0 = time.time()
-    # With the earlier forms that (g) holds K3 and K6 to and (m) K11 and K13.
-    from fourdgs_torch.tools.prepass_split import (block_chunk_kernel,
-                                                   word_kernels)
-    from fourdgs_torch.tools.sort_split import shared_stage_kernels
-    build_kernels(list(kernels.values()) + list(shared_stage_kernels())
-                  + [block_chunk_kernel(), *word_kernels()])
+    build_kernels(list(kernels.values()))
     print(f"(a) {kind}, {torch.cuda.device_count()} visible, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built "
           f"in {time.time() - t0:.1f} s")

@@ -39,7 +39,7 @@
 // at HBM rate) but the latency of each warp's walk through a deep tile's
 // records, one after another, and the shared-memory reads of that walk (the
 // earlier K1 read six fields a pair; its coverage test alone took 0.18 of
-// its 0.38 ms, tools/composite_split.py). Design (the record walk of
+// its 0.38 ms, PERF.md §6). Design (the record walk of
 // composite_walk.cuh, shared with K8): records outside, pixels inside, so a
 // record's ten fields are read once a warp and not once a pixel; a warp owns
 // 32 columns x 4 rows and skips, by a warp-uniform ballot list, every record
@@ -53,8 +53,9 @@
 // so its output is the same bit for bit. A tile cannot be split (the early
 // exit is tile-wide), so the grid stays one block a tile, but the blocks take
 // the tiles deepest first: the work a tile holds varies far more than its
-// chunk count, and in tile order the last deep tiles start late
-// (tools/composite_split.py times both orders).
+// chunk count, and in tile order the last deep tiles start late (PERF.md
+// §6; the earlier form and the tool that timed both orders are in git at
+// commit 044916e).
 
 #include <cuda_runtime.h>
 

@@ -33,8 +33,8 @@
 // block moves one span of one row with 16-byte loads and stores, a thread's
 // loads all issued before its first store; a row whose bases are not both
 // 16-byte aligned, and the words past the last full vector, move word by
-// word in the same kernel. Their earlier form, one thread per column, is
-// kept in fourdgs_torch/tools/csrc/pack_rows_scalar.cu.
+// word in the same kernel. Their earlier form, one thread per column, is in
+// git at commit 044916e (PERF.md §6).
 //
 // Bound on the H100: memory bandwidth; each reads and writes every word
 // once (K4 ~0.8 GB at the 10M-splat frame, K5 ~0.5 GB, its general form
@@ -111,8 +111,8 @@ constexpr int kMaxRows = row_copy::kMaxRows;
 // streaming hints, the rows one after the other. On the H100 four or eight
 // vectors a thread (80-128 KB in flight an SM) ran 0.3-4% slower, the rows
 // interleaved 2-5%, persistent blocks and the bulk asynchronous copy
-// through shared memory 5-7% (tools/pack_split.py,
-// tools/csrc/pack_rows_trials.cu).
+// through shared memory 5-7% (PERF.md §6; the trial forms are in git at
+// commit 044916e).
 constexpr int kCopyThreads = 256;
 constexpr int kCopyVec = 2;
 constexpr bool kCopyStream = true;

@@ -20,7 +20,7 @@
 // its vector's four words one by one, all four loads before the first store.
 //
 // `lookup_cuda.sample_plan` writes this partition out in plain PyTorch;
-// tests/test_torch_tail_prepass_split.py holds it on the CPU.
+// tests/test_torch_tail_prepass.py holds it on the CPU.
 
 #include <cuda_runtime.h>
 

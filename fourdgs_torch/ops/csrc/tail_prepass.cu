@@ -50,12 +50,11 @@
 //     words of each row a thread a round, loaded the same way.
 // A warp's 32 vectors (128 entries) or 32 words lie in one 512-wide
 // sub-block, so a sub-block's maximum is reduced a warp at a time. Why this
-// form: PERF.md (K6 and K3), measured by fourdgs_torch/tools/prepass_split.py
-// against the earlier form (tools/csrc/tail_prepass_block_chunk.cu) and the
-// trial forms (tools/csrc/tail_prepass_trials.cu).
+// form: PERF.md §6 (K6 and K3), measured against the earlier and trial
+// forms, which are in git at commit 044916e.
 //
 // `tail_cuda.prepass_walk` writes the walk out in plain PyTorch;
-// tests/test_torch_tail_prepass_split.py holds it on the CPU.
+// tests/test_torch_tail_prepass.py holds it on the CPU.
 
 #include <cuda_runtime.h>
 

@@ -6,8 +6,9 @@ values) against the stage-by-stage network that the CUDA source walks
 version). No compiler runs here: what these tests prove is the walk (the
 layouts' index maps, the rounds' stages on the register axis, the swizzled
 transposes, the direction folded into the keys), at tiles of 1,024 to 4,096
-pairs and 4 or 16 pairs a thread; the kernels' own bits are held against
-their earlier form on the card by chip_smoke.py (m).
+pairs and 4 or 16 pairs a thread; on the card chip_smoke.py (m) holds the
+kernels' keys exactly and their (key, value) multisets against the plain
+versions, and their keys and values bit for bit across two launches.
 
 Keys are made with numpy from fixed seeds: wide random keys, few distinct
 keys (ties), all keys equal, and rows that are all DEAD; values are the

@@ -8,8 +8,7 @@ partition (every word written once, from the right source word, the padded
 columns zero), at R = 1, 3, 10 and 16, n = 0, n % 4 != 0 and n = pad_to,
 pad_to % 4 != 0 and pad_to % 1024 == 0, rows that are views at a storage
 offset of 1-3 words, int32 and float32; the kernels' own bits are held
-against their plain versions and their earlier form on the card by
-chip_smoke.py (q). Then `pack_rows` / `unpack_rows` against the reference's
+against their plain versions on the card by chip_smoke.py (q). Then `pack_rows` / `unpack_rows` against the reference's
 kernel in interpret mode at a shape tests/test_torch_ops.py does not cover,
 and against `torch.stack` where the reference refuses the shape.
 
@@ -78,9 +77,8 @@ def test_row_copy_plan_writes_each_word_once(valid, length, aligned):
 
 @pytest.mark.parametrize("threads,vec", [(32, 1), (8, 2), (64, 8)])
 def test_row_copy_plan_other_launches(threads, vec):
-    """The same partition under other block sizes and vectors a thread
-    (the trial forms of tools/csrc/pack_rows_trials.cu): still one write a
-    word."""
+    """The same partition under other block sizes and vectors a thread:
+    still one write a word."""
     for valid, length in ((0, 37), (37, 37), (100, 131), (512, 515)):
         for aligned in (True, False):
             plan = TPK.row_copy_plan(valid, length, aligned, threads, vec)
@@ -196,24 +194,11 @@ def test_pack_rows_refused_shapes_against_stack(r, n, pad_to, offset, dtype):
         assert torch.equal(g, cot[f, :n]) and g.is_contiguous()
 
 
-def test_pack_split_forms_match_their_sources():
-    """The instrument's forms (fourdgs_torch/tools/pack_split.py) name what
-    its sources build: every -D variant is a switch of the earlier form's
-    source, every trial a case of the trial source, and the port's launch
-    (COPY_THREADS, COPY_VEC) the one pack.cu instantiates. Needs no card."""
-    import re
-
+def test_pack_cu_instantiates_the_row_copy_plan():
+    """The launch that `row_copy_plan` writes out (COPY_THREADS threads a
+    block, COPY_VEC 16-byte vectors a thread) is the one pack.cu
+    instantiates for K5's general form and K14. Needs no card."""
     from fourdgs_torch.ops._build import CSRC
-    from fourdgs_torch.tools import pack_split as PS
-    opts = PS.parse_args([])
-    assert opts.passes == PS.PASSES and opts.json is None
-    scalar = open(PS.SCALAR_SOURCE).read()
-    for flags in (*PS.PACK_VARIANTS.values(), *PS.UNPACK_VARIANTS.values()):
-        for flag in flags:
-            assert f"#ifdef {flag[2:]}" in scalar
-    trials = open(PS.TRIAL_SOURCE).read()
-    cases = {int(c) for c in re.findall(r"case (\d+):", trials)}
-    assert cases == set(PS.TRIALS)
     pack = open(CSRC / "pack.cu").read()
     assert f"kCopyThreads = {TPK.COPY_THREADS};" in pack
     assert f"kCopyVec = {TPK.COPY_VEC};" in pack

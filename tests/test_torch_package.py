@@ -1,10 +1,14 @@
 """Hygiene of the `fourdgs_torch` package: it never imports JAX, its kernel
-modules import without nvcc or triton, CPU tensors take the plain versions
-without launching (or building) anything, and the parameter hand-over
-rejects malformed input."""
+modules import without nvcc or triton, every CUDA source is one that a
+kernel entry point builds and exports that entry, CPU tensors take the
+plain versions without launching (or building) anything, and the parameter
+hand-over rejects malformed input."""
 
 import ctypes
+import importlib
 import os
+import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -13,21 +17,30 @@ import numpy as np
 import pytest
 import torch
 
+import fourdgs_torch.ops
 from fourdgs_torch.ops import (composite_cuda, lookup_cuda, pack_cuda,
                                sort_cuda, tail_cuda)
-from fourdgs_torch.ops._build import CudaKernel
+from fourdgs_torch.ops._build import CSRC, CudaKernel
 from fourdgs_torch.splats.packed import (PARAM4D_FIELDS, grads4d_to_numpy,
                                          params4d_from_numpy)
 
 REPO = Path(__file__).resolve().parents[1]
-KERNELS = (composite_cuda.COMPOSITE, sort_cuda.ROWSORT,
-           lookup_cuda.SAMPLE_BLOCKS, pack_cuda.PACK_RECORD_FIELDS,
-           pack_cuda.PACK_META_ROWS, tail_cuda.TAIL_PREPASS,
-           tail_cuda.TAIL_ACCUMULATE, composite_cuda.COMPOSITE_BWD,
-           tail_cuda.TAIL_ACCUMULATE_BWD, lookup_cuda.APPLY_CUTKEYS,
-           sort_cuda.MERGE_TREE, sort_cuda.MERGE_CROSS_STAGE,
-           sort_cuda.MERGE_FINISH, sort_cuda.MERGE_LEVELS,
-           pack_cuda.PACK_ROWS, pack_cuda.UNPACK_ROWS)
+
+
+def _kernels():
+    """Every CudaKernel that the `ops/*_cuda` modules hold, once each, in
+    module and attribute order."""
+    found = []
+    for m in pkgutil.iter_modules(fourdgs_torch.ops.__path__):
+        if m.name.endswith("_cuda"):
+            mod = importlib.import_module(f"fourdgs_torch.ops.{m.name}")
+            found += [v for _, v in sorted(vars(mod).items())
+                      if isinstance(v, CudaKernel)
+                      and all(v is not k for k in found)]
+    return found
+
+
+KERNELS = tuple(_kernels())
 
 
 def test_package_never_imports_jax():
@@ -41,8 +54,7 @@ def test_package_never_imports_jax():
         "for m in ('ops.sort_checks', 'io.png', 'io.native', 'io.vdata',\n"
         "          'scenes.models', 'scenes.scenes', 'parallel.distributed',\n"
         "          'parallel.mesh', 'parallel.multihost', 'entry',\n"
-        "          'tools.parent_parity', 'tools.validate_kernels',\n"
-        "          'tools.eigen_condition',\n"
+        "          'tools.validate_kernels', 'tools.eigen_condition',\n"
         "          'train.densify', 'train.trainer', 'render.overlay',\n"
         "          'viewer.cli', 'utils.simplex', 'utils.misc',\n"
         "          'examples.fit_motion',\n"
@@ -59,6 +71,21 @@ def test_package_never_imports_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.symbol)
+def test_every_entry_point_is_exported_by_its_source(kernel):
+    src = CSRC / kernel.source
+    assert src.is_file(), src
+    assert re.search(rf'extern "C" int {kernel.symbol}\(', src.read_text())
+
+
+def test_every_cuda_source_is_built_by_an_entry_point():
+    """No CUDA source in the package is left that no kernel builds."""
+    built = {(CSRC / k.source).resolve() for k in KERNELS}
+    package = REPO / "fourdgs_torch"
+    sources = {p.resolve() for p in package.rglob("*.cu")}
+    assert sources <= built, sorted(str(p) for p in sources - built)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -96,6 +123,14 @@ def test_cpu_tensors_take_the_plain_versions():
     sort_cuda.merge_sorted_rows(rows, rows)     # K11, K12, K13's
     g = torch.ones(1000, requires_grad=True)
     pack_cuda.pack_rows([g, g], 1024).sum().backward()      # K14's
+    from fourdgs_torch.core.camera import Camera
+    from fourdgs_torch.render.autoconfig import auto_render_config
+    from fourdgs_torch.render.pipeline import render_params4d_packed
+    from fourdgs_torch.scenes.cube import CUBE_CAMERA, build_cube_scene
+    cam = Camera.create(**CUBE_CAMERA, width=128, height=64, device="cpu")
+    render_params4d_packed(                         # K15's and K16's
+        build_cube_scene(1500, seed=2, device="cpu"), cam, 0.0,
+        cfg=auto_render_config(1500, 128, 64, converged=False))
     assert rec.grad is not None and f.grad is not None \
         and fields.grad is not None and g.grad is not None
     for k in KERNELS:

@@ -3,9 +3,7 @@ its attribution of device operations to `fourdgs::*` ranges on a synthetic
 trace, and one profiled render on the CPU (host ranges only); where the
 render calls open their ranges (every call inside one, one
 `fourdgs::frame` a call, none inside the projection, the tail's set-up
-before its prepass); and the parts
-of the sort split (fourdgs_torch/tools/sort_split.py) that need no card: its
-arguments and its histogram of live keys a row."""
+before its prepass)."""
 
 import functools
 
@@ -279,77 +277,3 @@ def test_tail_setup_opens_in_the_tail_before_its_prepass(entry):
         assert not [c for c in s.cpu_parent.cpu_children
                     if c.name.startswith(PF.PREFIX)
                     and c.time_range.start < s.time_range.start]
-
-
-def test_sort_split_arguments_and_histogram(monkeypatch):
-    """The sort split's argument parsing, and its histogram of live keys a
-    row on what a 4,096-splat converged frame hands rowsort_compact (the
-    timing part needs the card and is not run here)."""
-    from fourdgs_torch.core.camera import Camera
-    from fourdgs_torch.ops import sort_cuda as S
-    from fourdgs_torch.render.autoconfig import auto_render_config
-    from fourdgs_torch.scenes.cube import (CUBE_CAMERA, build_cube_scene,
-                                           converged_cube_scene)
-    from fourdgs_torch.tools import sort_split as SS
-    opts = SS.parse_args([])
-    assert (opts.width, opts.height, opts.splats, opts.json) == (
-        SS.WIDTH, SS.HEIGHT, SS.N_SPLATS, None)
-    opts = SS.parse_args(["--width", "3840", "--height", "2160", "--json",
-                          "out.json"])
-    assert (opts.width, opts.height, opts.json) == (3840, 2160, "out.json")
-    with pytest.raises(SystemExit):
-        SS.parse_args(["--frames", "3"])
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
-    n, w, h = 4096, 256, 128
-    params = converged_cube_scene(build_cube_scene(n, seed=3, device="cpu"))
-    cam = Camera.create(**CUBE_CAMERA, width=w, height=h, device="cpu")
-    calls = SS.capture_rowsort_calls(params, cam, auto_render_config(n, w, h))
-    assert len(calls) == 1
-    (key, val, keep), kw = calls[0]
-    hist = SS.live_histogram(key, kw["row_len"], kw["cut"], kw["key_shift"])
-    rows = S.rowsort_rows(key.shape[0], kw["row_len"])
-    before, after = hist["before_cut"], hist["after_cut"]
-    assert before["rows"] == after["rows"] == rows
-    assert before["total"] == int((key != S.DEAD).sum()) > 0
-    _, _, live = S.rowsort_compact_plain(key, val, keep, kw["row_len"],
-                                         kw["cut"], kw["key_shift"])
-    assert after["total"] == int(live.sum()) <= before["total"]
-    assert after["max"] == int(live.max())
-    assert after["mean"] == pytest.approx(float(live.double().mean()))
-    assert after["p50"] <= after["p99"] <= after["p999"] <= after["max"]
-    for t in SS.THRESHOLDS:
-        assert after[f"share_above_{t}"] == pytest.approx(
-            float((live > t).double().mean()))
-    same = SS.live_histogram(key, kw["row_len"], None, kw["key_shift"])
-    assert same["after_cut"] == same["before_cut"] == before
-
-
-def test_sort_split_merge_inputs():
-    """The merge kernels' split: its flags, and the inputs it hands K11 and
-    every K13 (made and walked here on the CPU at 2^16 pairs): sorted rows
-    of 512, odd rows descending; before each finish, the state the schedule
-    leaves, which the finish's plain version sorts block by block."""
-    from fourdgs_torch.ops import sort_cuda as S
-    from fourdgs_torch.tools import sort_split as SS
-    opts = SS.parse_args(["--merge-only", "--earlier-only"])
-    assert opts.merge_only and opts.earlier_only
-    assert not SS.parse_args([]).merge_only
-    pairs = 1 << 16
-    (rk, rv), finishes = SS.merge_inputs("cpu", pairs)
-    rows = rk.reshape(-1, SS.MERGE_ROW).long()
-    assert (rows[0::2].diff(dim=1) >= 0).all()
-    assert (rows[1::2].diff(dim=1) <= 0).all()
-    assert torch.equal(torch.sort(rv)[0], torch.arange(pairs,
-                                                       dtype=torch.int32))
-    assert [r for r, _, _ in finishes] == [2 * S.MERGE_BLOCK, 4 * S.MERGE_BLOCK]
-    for run_out, k, v in finishes:
-        sk = S.merge_finish_plain(k, v, S.MERGE_BLOCK, run_out)[0]
-        blocks = sk.reshape(-1, S.MERGE_BLOCK).long()
-        desc = (torch.arange(blocks.shape[0]) * S.MERGE_BLOCK // run_out
-                ) % 2 == 1
-        if run_out == pairs:
-            desc[:] = False
-        d = blocks.diff(dim=1)
-        assert ((d >= 0).all(1) | desc).all() and ((d <= 0).all(1) | ~desc
-                                                   ).all()
-    assert torch.equal(torch.sort(finishes[-1][1])[0], torch.sort(rk)[0])

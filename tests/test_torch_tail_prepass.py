@@ -8,7 +8,7 @@ version and the reference's kernel in interpret mode, exactly, on the
 vector and the scalar path; every sample word written once, from the word
 the plain version takes, on the vector path and, at a base off 16 bytes,
 the scalar path); the kernels' own bits are held against their plain
-versions and their earlier forms on the card by chip_smoke.py.
+versions on the card by chip_smoke.py.
 
 Inputs are made with numpy from fixed seeds. Everything is integer: exact.
 """
@@ -213,17 +213,3 @@ def test_sample_blocks_at_an_offset_matches_reference():
                              take_rows=take, interpret=True)
     got, = L.sample_blocks([torch.from_numpy(buf)[3:]], stride, take)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-
-def test_prepass_split_variant_flags_name_switches():
-    """Every -D variant of the split tool (fourdgs_torch/tools/
-    prepass_split.py) names a switch of the earlier form's source, so no
-    variant builds the unchanged kernel under another name."""
-    from fourdgs_torch.tools import prepass_split as PS
-    for source, variants in ((PS.BLOCK_CHUNK_SOURCE, PS.K6_VARIANTS),
-                             (PS.WORD_SOURCE, PS.K3_VARIANTS)):
-        text = open(source).read()
-        for flags in variants.values():
-            for flag in flags:
-                name = flag[2:].split("=")[0]
-                assert f"#ifdef {name}" in text or f"#ifndef {name}" in text
